@@ -1,0 +1,102 @@
+"""Application entry: scene, method, render loop — the port's CLI.
+
+Counterpart of `pcrhpg24_tpu/app.py` for the flagship path: a `.tpc` v2
+scene rendered by `huffman_tpu` on one device, offscreen, with PNG
+export and a timing report.
+
+Usage:
+  python -m pcrhpg24_tpu_torch.app --scene out/scene.tpc --method huffman_tpu
+      [--frames 3] [--width 1920 --height 1080]
+      [--yaw -0.15 --pitch -0.57 --radius 1000 --target x y z]
+      [--lod 0.1] [--screenshot out/frame.png] [--stats] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from pcrhpg24_tpu.engine.debug import Debug
+from pcrhpg24_tpu.engine.method import Runtime
+
+from .engine.renderer import Renderer, Setting
+
+def _not_yet(scene_path: str) -> str:
+    """The ROADMAP item that ports a scene kind the reference renders."""
+    if scene_path.endswith(".huffman"):
+        return ".huffman scenes are ROADMAP A7 (load-time transcode) and A11"
+    if scene_path.endswith(".laz") or "," in scene_path or "*" in scene_path:
+        return "multi-file and .laz scenes (las_sparse) are ROADMAP A11"
+    if scene_path.endswith(".las"):
+        return ".las scenes (loop_las, basic, compute_2021) are ROADMAP A11"
+    if scene_path == "parametric":
+        return "the parametric scene is ROADMAP A11"
+    return "Potree scenes are ROADMAP A10"
+
+
+def build_methods(renderer: Renderer, scene_path: str):
+    """Instantiate the loader + method for a scene (main.cpp:244-274)."""
+    Runtime.clear()
+    if not scene_path.endswith(".tpc"):
+        raise NotImplementedError(_not_yet(scene_path))
+    from .engine.native_resource import NativeLasData
+    from .render.methods.huffman_tpu import HuffmanTpu
+
+    data = NativeLasData.create(scene_path, renderer.device)
+    Runtime.add_method(HuffmanTpu(renderer, data))
+    return Runtime.methods
+
+
+def run(argv=None) -> Renderer:
+    """Parse `argv`, render, save; returns the renderer (frame times,
+    last image) for callers that inspect the run."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--scene", required=True)
+    ap.add_argument("--method", default="huffman_tpu")
+    ap.add_argument("--frames", type=int, default=1)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--yaw", type=float, default=-0.15)
+    ap.add_argument("--pitch", type=float, default=-0.57)
+    ap.add_argument("--radius", type=float, default=1000.0)
+    ap.add_argument("--target", type=float, nargs=3, default=(0.0, 0.0, 0.0))
+    ap.add_argument("--lod", type=float, default=0.1)
+    ap.add_argument("--screenshot", default=None)
+    ap.add_argument("--stats", action="store_true", help="print timing report")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    Debug.lod = args.lod
+    renderer = Renderer(args.width, args.height, args.device)
+    renderer.apply_setting(
+        Setting(yaw=args.yaw, pitch=args.pitch, radius=args.radius,
+                target=args.target)
+    )
+    build_methods(renderer, args.scene)
+    Runtime.set_selected(args.method)
+    method = Runtime.selected
+
+    print(f"rendering {args.frames} frame(s) with {method.name} "
+          f"on {renderer.device}")
+    method.update(renderer)
+    method.las.wait_loaded(renderer)
+    renderer.loop(method.update, method.render, frames=args.frames)
+
+    if args.screenshot:
+        renderer.save_screenshot(args.screenshot)
+        print(f"wrote {args.screenshot}")
+    if args.stats:
+        print(renderer.timings.report())
+        if renderer.frame_ms:
+            print("device frame ms (CUDA events): "
+                  + " ".join(f"{t:.3f}" for t in renderer.frame_ms))
+    return renderer
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

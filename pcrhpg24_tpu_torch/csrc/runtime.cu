@@ -1,0 +1,7 @@
+// Error text for the codes the kernel entry points return.
+
+#include <cuda_runtime.h>
+
+extern "C" const char* pcr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

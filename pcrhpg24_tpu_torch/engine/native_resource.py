@@ -1,0 +1,168 @@
+"""Streaming `.tpc` scene resource on torch device tensors.
+
+Counterpart of `pcrhpg24_tpu/engine/native_resource.py:NativeLasData`
+for `.tpc` v2 (fbatch, BC1 colours): the same header-driven
+preallocation, detached loader thread, per-frame `process()` upload and
+`budget_batches` residency cap.  Device buffers are padded to the
+render chunk (64 batches) and hold u32 words as int32 bits.  v1
+(tbatch) scenes are ROADMAP A9, raw/BC7 colours A11, and the `.huffman`
+load-time path (`HuffmanNativeData`) A7.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from queue import Empty, Queue
+
+import numpy as np
+import torch
+
+from pcrhpg24_tpu.constants import TPU_GROUPS_PER_BATCH, WORKGROUP_SIZE
+from pcrhpg24_tpu.formats.native_file import COLOR_WORDS, read_tpc_batch, read_tpc_header
+
+from .. import device_of
+from ..render.decode_fixed import pack_fixed_batches
+from ..render.methods.huffman_tpu import CHUNK
+from ..render.project import colors_kernel_layout
+from .resource import Resource, ResourceState, upload_rows
+
+G = TPU_GROUPS_PER_BATCH
+
+
+class NativeLasData(Resource):
+    BATCHES_PER_TASK = 100
+
+    def __init__(self, path: str, device, budget_batches: int | None = None):
+        """`budget_batches` caps device residency: the loader streams the
+        first `budget_batches` batches (a coarse Morton prefix) and the
+        resource reports LOADED there; `resident_limited` records that
+        the dataset is larger."""
+        self.device = device_of(device)
+        self.path = path
+        self.header = read_tpc_header(path)
+        if self.header.version != 2:
+            raise NotImplementedError(
+                ".tpc v1 (tbatch) scenes: decode kernel B5 is ROADMAP A9")
+        if self.header.color_fmt != "bc1":
+            raise NotImplementedError(f"{self.header.color_fmt} colours: their "
+                                      "payload decode is ROADMAP A11")
+        self.dataset_points = self.header.num_points
+        self.dataset_batches = self.header.num_batches
+        nb = self.header.num_batches
+        if budget_batches is not None:
+            nb = min(nb, budget_batches)
+        self.resident_limited = nb < self.header.num_batches
+        self.num_points = nb * WORKGROUP_SIZE * 64
+        self.num_batches = nb
+        self.num_batches_loaded = 0
+        self.num_points_loaded = 0
+        self.maxt = -(-self.header.max_group_words // 128) + 4
+        self.dev: dict[str, torch.Tensor] = {}
+        self.scale = np.asarray(self.header.scale)
+        self.offset = np.asarray(self.header.offset)
+        self.las_min = np.asarray(self.header.las_min)
+        self.bbox_min = np.zeros((self.num_batches, 3), np.float32)
+        self.bbox_max = np.zeros((self.num_batches, 3), np.float32)
+        b_pad = -(-self.num_batches // CHUNK) * CHUNK
+        # per-batch i32 anchors for batch-relative (f64-precision) projection
+        self.anchor_i = np.zeros((b_pad, 3), np.int64)
+        self._queue: Queue = Queue()
+        self._thread = None
+        self._abort = threading.Event()
+
+    @classmethod
+    def create(cls, path: str, device, budget_batches: int | None = None
+               ) -> "NativeLasData":
+        return cls(path, device, budget_batches=budget_batches)
+
+    def load(self, renderer=None):
+        if self.state != ResourceState.UNLOADED:
+            return
+        self.state = ResourceState.LOADING
+        B = -(-self.num_batches // CHUNK) * CHUNK
+        z = lambda shape, dtype=torch.int32: torch.zeros(
+            shape, dtype=dtype, device=self.device)
+        self.dev = dict(
+            widths=z((B, 3, G, 128)),
+            streams=z((B, self.maxt, G, 128)),
+            ptrs=z((B, 1, 64)),
+            starts=z((B, 3, G, 128)),
+            colors=z((B, COLOR_WORDS["bc1"])),
+            colors_k=z((B, 4, 2, G, 128)),
+            bbox_min=z((B, 3), torch.float32),
+            bbox_max=z((B, 3), torch.float32),
+            anchor=z((B, 3)),
+        )
+        self._abort.clear()
+        self._thread = threading.Thread(target=self._loader_main, daemon=True)
+        self._thread.start()
+
+    def _loader_main(self):
+        try:
+            for start in range(0, self.num_batches, self.BATCHES_PER_TASK):
+                if self._abort.is_set():
+                    return
+                end = min(start + self.BATCHES_PER_TASK, self.num_batches)
+                items = [read_tpc_batch(self.path, self.header, i)
+                         for i in range(start, end)]
+                self._queue.put((start, items))
+        except Exception as e:  # surfaced on the render thread by process()
+            self._queue.put(("error", e))
+
+    def unload(self, renderer=None):
+        self.state = ResourceState.UNLOADING
+        self._abort.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        self.dev = {}
+        self.num_batches_loaded = 0
+        self.num_points_loaded = 0
+        self.state = ResourceState.UNLOADED
+
+    def process(self, renderer=None, max_tasks: int = 8):
+        for _ in range(max_tasks):
+            try:
+                item = self._queue.get_nowait()
+            except Empty:
+                break
+            if item[0] == "error":
+                raise item[1]
+            start, items = item
+            self._upload(start, items)
+        if self.num_batches_loaded == self.num_batches:
+            self.state = ResourceState.LOADED
+
+    def _upload(self, start: int, items):
+        d = self.dev
+        n = len(items)
+        fbs = [fb for fb, _c in items]
+        packed = pack_fixed_batches(fbs, maxt=self.maxt)
+        packed["streams"] = packed["streams"].view(np.int32)
+        for key in ("widths", "streams", "ptrs", "starts"):
+            upload_rows(d[key], start, packed[key])
+        colors = np.stack([c for _fb, c in items]).astype(np.uint32)
+        upload_rows(d["colors"], start, colors.view(np.int32))
+        upload_rows(d["colors_k"], start, colors_kernel_layout(colors).view(np.int32))
+        # component-wise chain-start minimum: the exact per-batch anchor
+        anchors = np.stack([
+            np.asarray(fb.start_values).reshape(-1, 3).min(axis=0) for fb in fbs
+        ]).astype(np.int64)
+        self.anchor_i[start:start + n] = anchors
+        upload_rows(d["anchor"], start, anchors.astype(np.int32))
+        for i, fb in enumerate(fbs):
+            bmin = fb.bbox_min_i.astype(np.float64) * self.scale + self.offset
+            bmax = fb.bbox_max_i.astype(np.float64) * self.scale + self.offset
+            self.bbox_min[start + i] = (bmin - self.las_min).astype(np.float32)
+            self.bbox_max[start + i] = (bmax - self.las_min).astype(np.float32)
+        upload_rows(d["bbox_min"], start, self.bbox_min[start:start + n])
+        upload_rows(d["bbox_max"], start, self.bbox_max[start:start + n])
+        self.num_batches_loaded = max(self.num_batches_loaded, start + n)
+        self.num_points_loaded = self.num_batches_loaded * WORKGROUP_SIZE * 64
+
+    def wait_loaded(self, renderer=None):
+        self.load(renderer)
+        while self.state != ResourceState.LOADED:
+            self.process(renderer, max_tasks=1_000_000)
+            time.sleep(0.01)
+        return self

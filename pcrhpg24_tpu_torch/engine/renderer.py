@@ -1,0 +1,93 @@
+"""Offscreen renderer and main loop.
+
+Counterpart of `pcrhpg24_tpu/engine/renderer.py`: owns the camera and
+orbit controls, drives update/render, aggregates frame timings and
+saves screenshots through the shared `utils/png.write_png`.  Where the
+reference blocks on the image with `block_until_ready`, this loop
+calls `torch.cuda.synchronize()`; on a CUDA device each frame's render
+is also bracketed by CUDA events, whose elapsed time lands in
+`frame_ms` (the GLTimerQueries equivalent).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pcrhpg24_tpu.engine.debug import Debug
+from pcrhpg24_tpu.engine.timing import Timings
+from pcrhpg24_tpu.utils.png import write_png
+
+from .. import device_of
+from ..render.camera import Camera, OrbitControls
+from ..render.raster import image_to_rgb8
+
+
+@dataclass
+class Setting:
+    """Camera preset of a scene (reference: src/main.cpp:66-74)."""
+
+    yaw: float = 0.0
+    pitch: float = 0.0
+    radius: float = 1.0
+    target: tuple = (0.0, 0.0, 0.0)
+
+
+class Renderer:
+    def __init__(self, width: int = 1920, height: int = 1080, device="cuda"):
+        self.device = device_of(device)
+        self.width = width
+        self.height = height
+        self.camera = Camera(width=width, height=height)
+        self.controls = OrbitControls()
+        self.timings = Timings()
+        self.frame_ms: list[float] = []  # device ms per frame (CUDA events)
+        self.frame_count = 0
+        self.last_image = None
+        self.last_fb = None
+        self.capture_depth = False  # the depth plane is ROADMAP A6/A11
+
+    def apply_setting(self, setting: Setting) -> None:
+        """Load a scene Setting's camera preset (main.cpp:215-218)."""
+        self.controls.yaw = setting.yaw
+        self.controls.pitch = setting.pitch
+        self.controls.radius = setting.radius
+        self.controls.target = np.asarray(setting.target, np.float64)
+
+    def loop(self, update, render, frames: int = 1, block: bool = True):
+        """Run `frames` iterations of update+render (Renderer.cpp:239-766).
+
+        With `block` the frame time includes device completion.
+        """
+        cuda = self.device.type == "cuda"
+        for _ in range(frames):
+            with self.timings.span("frame"):
+                self.controls_update()
+                with self.timings.span("update"):
+                    update(self)
+                with self.timings.span("render"):
+                    if cuda:
+                        ev0 = torch.cuda.Event(enable_timing=True)
+                        ev1 = torch.cuda.Event(enable_timing=True)
+                        ev0.record()
+                    img = render(self)
+                    if cuda:
+                        ev1.record()
+                    if block and cuda:
+                        torch.cuda.synchronize(self.device)
+                        self.frame_ms.append(ev0.elapsed_time(ev1))
+            self.last_image = img
+            self.frame_count += 1
+            Debug.clear_frame_stats()
+        return self.last_image
+
+    def controls_update(self) -> None:
+        self.camera.world = self.controls.world()
+
+    def save_screenshot(self, path: str) -> None:
+        """Resolve the last frame to a PNG (Renderer.cpp:94-107)."""
+        if self.last_image is None:
+            raise RuntimeError("no frame rendered yet")
+        write_png(path, image_to_rgb8(self.last_image).cpu().numpy())

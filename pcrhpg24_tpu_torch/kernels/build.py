@@ -1,0 +1,147 @@
+"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+
+One `nvcc` call compiles every source into a shared library with a
+plain C interface (no PyTorch headers: seconds, not minutes), which
+`ctypes` loads.  The build happens at first use, into
+`build/torch_kernels/<hash>/` under the checkout, keyed by a hash of
+the sources and flags, so a fresh checkout builds everything on its
+first kernel call.
+
+Numerics: `-fmad=false` keeps nvcc from contracting a*b+c into an FMA,
+and no fast-math flag is ever passed — the depth key is the f32 bit
+pattern of `w`, so the projection must round per op exactly like the
+reference (`pallas_project.py:109-122`).
+
+Every C entry point takes its pointers and the stream as `void*`, the
+rest as `int` (a count as `long long`), and returns `cudaGetLastError()`
+after its launch;
+`Kernel.launch` raises if that is not 0 and counts the launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libpcr_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "host with the CUDA toolkit")
+    return found
+
+
+@functools.lru_cache(maxsize=1)
+def build() -> tuple[Path, float, str]:
+    """Compile the library if its hash has no build yet.
+
+    Returns (library path, seconds spent compiling — 0 when cached,
+    nvcc's output including `-Xptxas -v` register/smem counts).
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    log = out_dir / "nvcc.log"
+    if lib.exists():
+        return lib, 0.0, log.read_text() if log.exists() else ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    text = " ".join(cmd) + "\n" + res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{text}")
+    log.write_text(text)
+    os.replace(tmp, lib)
+    return lib, seconds, text
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    lib.pcr_error_string.restype = ctypes.c_char_p
+    lib.pcr_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_longlong
+
+
+class Kernel:
+    """One C entry point of the library and its launch count.
+
+    `launches` is a plain integer: `launch` adds one after each
+    successful launch and nothing else touches it but a caller that
+    resets it to 0.
+    """
+
+    def __init__(self, symbol: str, argtypes: list):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        KERNELS[symbol] = self
+
+    def launch(self, *args) -> None:
+        lib = load()
+        fn = getattr(lib, self.symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*self.argtypes, P]  # stream last
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            msg = lib.pcr_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+# every kernel wrapper of the package, by C symbol
+KERNELS: dict[str, Kernel] = {}
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and shape)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

@@ -1,0 +1,150 @@
+"""`huffman_tpu` — the flagship colour frame on `.tpc` v2 scenes.
+
+Counterpart of `pcrhpg24_tpu/render/methods/huffman_tpu.py`: per frame,
+device frustum cull + LOD, then for each live 64-batch chunk the fbatch
+decode (B1) and the fused projection + BC1 + run collapse (B2), then the
+exact u64-min resolve (B3) over every chunk's stream, the plane split,
+the unswizzle and the background fill.
+
+There is no sort: the reference's per-chunk `lax.sort` and its
+matscatter merge exist only because the TPU has no atomics
+(`pallas_merge.py:1-25`); B3's `atomicMin` gives the same planes in any
+order.  Debug colour modes, the depth plane (`need_depth`) and bounding
+boxes are ROADMAP A6/A11 and raise here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pcrhpg24_tpu.constants import POINTS_PER_THREAD
+from pcrhpg24_tpu.engine.debug import Debug
+
+from ..camera import batch_translations, frame_setup_device
+from ..decode_fixed import decode_fixed_batches, decode_fixed_plain
+from ..project import project_batches, project_plain
+from ..raster import (
+    EMPTY,
+    resolve,
+    swizzle_dims,
+    u64_min_planes,
+    u64_min_planes_plain,
+    unswizzle_plane,
+)
+from .base import HuffmanMemIterHost
+
+CHUNK = 64  # batches per decode + project pass (4.2M points)
+
+
+def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
+                        nchunks: int, cull: bool,
+                        points: int = POINTS_PER_THREAD, plain: bool = False):
+    """One colour frame -> (fb_payload (H*W,) int32 bits, image (H,W) int32).
+
+    frame_params (40,) f32: view(16) | proj_params(6) | lod_floor | B |
+    wvp(16); tb (B_pad, 4) f32 per-batch folded translations; scale
+    (3,) f32.  `points` is the static LOD bucket: every chain decodes
+    only that prefix.  `plain=True` runs every stage's plain torch
+    version on whatever device the tensors are on (the gate the kernels
+    are held to); otherwise the stages dispatch on the tensors' device.
+    """
+    decode, project, planes = (
+        (decode_fixed_plain, project_plain, u64_min_planes_plain) if plain
+        else (decode_fixed_batches, project_batches, u64_min_planes))
+    view = frame_params[0:16].reshape(4, 4)
+    proj_params = frame_params[16:22]
+    lod_n = frame_setup_device(
+        view, proj_params, dev["bbox_min"], dev["bbox_max"],
+        frame_params[23].to(torch.int32), width, height, frame_params[22], cull,
+    )
+    # the bucket comes from the host f64 LOD; the device f32 LOD could
+    # exceed it by one at a bucket boundary, so clamp (huffman_tpu.py:227)
+    lod_n = torch.clamp(lod_n, max=points)
+    t = frame_params[24:40].reshape(4, 4)
+    frame12 = torch.cat([t[0, :3], t[1, :3], t[3, :3], scale[:3]])
+    size = swizzle_dims(width, height)[2]
+
+    # live-chunk skip: a chunk with no visible batch launches nothing.
+    # The host reads which chunks are live (one small device->host copy).
+    live = (lod_n[: nchunks * CHUNK].reshape(nchunks, CHUNK) > 0).any(dim=1)
+    parts = []
+    for c in torch.nonzero(live).flatten().tolist():
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        coords = decode(dev["widths"][sl], dev["streams"][sl], dev["ptrs"][sl],
+                        dev["starts"][sl], points=points)
+        parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl],
+                             tb[sl], lod_n[sl], frame12, width, height,
+                             points=points))
+    if parts:
+        _fb_d, fb_p = planes(parts, size)
+    else:
+        fb_p = torch.full((size,), EMPTY, dtype=torch.int32, device=lod_n.device)
+    fb_p = unswizzle_plane(fb_p, width, height)
+    return fb_p, resolve(fb_p, width, height)
+
+
+class HuffmanTpu(HuffmanMemIterHost):
+    """Flagship native-format method (B1 -> B2 -> B3)."""
+
+    def __init__(self, renderer, tpc):
+        self.name = "huffman_tpu"
+        self.description = "fbatch decode + fused projection + u64 atomicMin"
+        self.group = "huffman"
+        self.las = tpc
+        self.renderer = renderer
+        self._scale = None
+
+    def frame_args(self, renderer) -> dict:
+        """Keyword arguments of `render_frame_native` for this frame.
+
+        One host -> device copy: the 40 frame params and the (B, 4)
+        per-batch translations (computed on the host in f64, the
+        reference's close-up precision path) ride one packed array.
+        """
+        las = self.las
+        cam = renderer.camera
+        fp = np.zeros(40, np.float32)
+        fp[0:16] = cam.view().astype(np.float32).reshape(-1)
+        fp[16:22] = cam.proj_params().astype(np.float32)
+        fp[22] = Debug.lod
+        fp[23] = float(las.num_batches_loaded)
+        fp[24:40] = (cam.proj() @ cam.view()).astype(np.float32).reshape(-1)
+        # LOD bucket: decode only ceil(max_lod/16)*16 points per chain
+        _, lod_full = self.frame_setup(renderer)
+        points = max(16, -(-int(lod_full.max()) // 16) * 16)
+        tb = batch_translations(
+            cam.proj() @ cam.view(), las.anchor_i[: las.dev["anchor"].shape[0]],
+            las.scale, las.offset, las.las_min,
+        )
+        packed = torch.from_numpy(
+            np.concatenate([fp, np.asarray(tb, np.float32).ravel()])
+        ).to(las.device)
+        if self._scale is None:
+            self._scale = torch.tensor(np.asarray(las.scale, np.float32),
+                                       device=las.device)
+        return dict(
+            dev=las.dev, frame_params=packed[:40], tb=packed[40:].reshape(-1, 4),
+            scale=self._scale, width=renderer.width, height=renderer.height,
+            nchunks=-(-las.num_batches // CHUNK),
+            cull=Debug.frustum_culling_enabled and Debug.update_frustum,
+            points=points,
+        )
+
+    def render(self, renderer):
+        if Debug.colorize_chunks or Debug.show_num_points or Debug.colorize_overdraw:
+            raise NotImplementedError("debug colour modes are ROADMAP A6")
+        if Debug.show_bounding_box:
+            raise NotImplementedError("bounding boxes (overlay.py) are ROADMAP A11")
+        if getattr(renderer, "capture_depth", False) or Debug.edl:
+            raise NotImplementedError(
+                "the depth plane (need_depth, EDL) is ROADMAP A6/A11")
+        las = self.las
+        las.process(renderer)
+        if las.num_batches_loaded == 0:
+            W, H = renderer.width, renderer.height
+            empty = torch.full((W * H,), EMPTY, dtype=torch.int32, device=las.device)
+            return resolve(empty, W, H)
+        fb_p, img = render_frame_native(**self.frame_args(renderer))
+        renderer.last_fb = (None, fb_p)
+        return img

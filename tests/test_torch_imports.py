@@ -1,0 +1,94 @@
+"""The port never loads jax, and never carries on without its device.
+
+The machine with the card has no jax at all, so importing any module of
+`pcrhpg24_tpu_torch` must leave `jax` out of `sys.modules`.  This runs
+in a fresh interpreter because this test process (tests/conftest.py)
+has imported jax already.
+"""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pcrhpg24_tpu_torch
+from pcrhpg24_tpu_torch import app, device_of
+from pcrhpg24_tpu_torch.convert import dev_from_numpy
+from pcrhpg24_tpu_torch.engine.renderer import Renderer
+from pcrhpg24_tpu_torch.kernels import build
+from pcrhpg24_tpu_torch.render.raster import u64_min_planes
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _modules():
+    names = [pcrhpg24_tpu_torch.__name__]
+    for m in pkgutil.walk_packages(pcrhpg24_tpu_torch.__path__,
+                                   pcrhpg24_tpu_torch.__name__ + "."):
+        names.append(m.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert len(mods) >= 15
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {mods!r}:
+            importlib.import_module(name)
+            assert "jax" not in sys.modules, name
+            assert "jaxlib" not in sys.modules, name
+        print("ok", len({mods!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_of("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(64, 32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dev_from_numpy({"anchor": np.zeros((1, 3), np.int32)}, "cuda")
+
+
+def test_kernel_source_hash_tracks_sources():
+    import pcrhpg24_tpu_torch.render.methods.huffman_tpu  # noqa: F401  (all wrappers)
+
+    srcs = {p.name for p in build.sources()}
+    assert {"decode_fixed.cu", "project.cu", "raster.cu"} <= srcs
+    assert len(build.source_hash()) == 16
+    assert "-fmad=false" in build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in build.NVCC_FLAGS)
+    assert set(build.KERNELS) >= {"pcr_decode_fixed", "pcr_project", "pcr_u64_min"}
+
+
+def test_cpu_tensors_never_launch():
+    """A CPU tensor takes the plain version and counts no launch."""
+    before = build.KERNELS["pcr_u64_min"].launches
+    pid = torch.tensor([3, 3, 9], dtype=torch.int32)
+    dep = torch.tensor([5, 4, 1], dtype=torch.int32)
+    pay = torch.tensor([1, 2, 3], dtype=torch.int32)
+    fb_d, fb_p = u64_min_planes([(pid, dep, pay)], 8)
+    assert fb_d[3] == 4 and fb_p[3] == 2 and fb_p[0] == -1
+    assert build.KERNELS["pcr_u64_min"].launches == before
+
+
+@pytest.mark.parametrize("scene,item", [
+    ("x.huffman", "A7"), ("x.las", "A11"), ("x.laz", "A11"),
+    ("a.las,b.las", "A11"), ("parametric", "A11"), ("potree_dir", "A10"),
+])
+def test_unported_scene_kinds_name_their_roadmap_item(scene, item):
+    r = Renderer(64, 32, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        app.build_methods(r, scene)

@@ -1,0 +1,97 @@
+"""Port B3 (exact u64-min resolve) and the raster helpers vs the reference.
+
+`u64_min_planes_plain` must give the planes of `raster.scatter_u64_min`
+bit for bit — every u32 depth and payload, ties on depth broken by the
+smaller payload, out-of-range pids dropped — and, on one case, the
+planes of the TPU path (`dense_from_sorted_rows` over nk3-sorted rows,
+interpret mode).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcrhpg24_tpu.render import raster as ref
+from pcrhpg24_tpu_torch.render import raster as port
+from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
+
+SIZE = 49_152  # 48 swizzle tiles of 1024
+
+
+def _stream(seed, n=16 * 1024, kind="collide"):
+    rng = np.random.default_rng(seed)
+    pid = rng.integers(0, SIZE, n).astype(np.uint32)
+    dep = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    pay = rng.integers(0, 2**24, n).astype(np.uint32)
+    if kind == "collide":  # few pixels, many entries each
+        pid = rng.integers(0, 64, n).astype(np.uint32) * 97
+        pid[rng.random(n) < 0.3] = SIZE
+    elif kind == "ties":  # equal depths per pixel: payload decides
+        pid = rng.integers(0, 512, n).astype(np.uint32)
+        dep = (0x3F800000 + (pid % 3)).astype(np.uint32)
+    elif kind == "oob":
+        pid = SIZE + rng.integers(0, 1000, n).astype(np.uint32)
+    return pid, dep, pay
+
+
+@pytest.mark.parametrize("kind", ["collide", "ties", "oob", "spread"])
+def test_u64_min_plain_equals_scatter(kind):
+    pid, dep, pay = _stream(len(kind), kind=kind)
+    want = ref.scatter_u64_min(jnp.asarray(pid.astype(np.int32)),
+                               jnp.asarray(dep), jnp.asarray(pay), SIZE)
+    # two parts: the plane min-combines across streams
+    h = len(pid) // 3
+    parts = [tuple(from_u32(a[:h]) for a in (pid, dep, pay)),
+             tuple(from_u32(a[h:]) for a in (pid, dep, pay))]
+    got = port.u64_min_planes(parts, SIZE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+    if kind == "oob":
+        assert (to_u32(got[1]) == 0xFFFFFFFF).all()
+
+
+def test_u64_min_plain_equals_merge_kernel():
+    """The TPU path: nk3-sorted rows through the matscatter merge."""
+    from pcrhpg24_tpu.render.pallas_merge import dense_from_sorted_rows
+
+    pid, dep, pay = _stream(7, kind="collide")
+    rows = 4
+    n = len(pid) // rows
+    sp, sd, sy = jax.lax.sort(
+        [jnp.asarray(a.reshape(rows, n)) for a in (pid, dep, pay)],
+        num_keys=3, is_stable=False, dimension=1)
+    want = dense_from_sorted_rows(sp, sd, sy, SIZE, True, interpret=True,
+                                  fully_sorted=True, pay_bits=24)
+    got = port.u64_min_planes([tuple(from_u32(a) for a in (pid, dep, pay))], SIZE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("w,h", [(320, 180), (1920, 1080), (64, 32)])
+def test_swizzle_equal(w, h):
+    assert port.swizzle_dims(w, h) == ref.swizzle_dims(w, h)
+    rng = np.random.default_rng(w)
+    px = rng.integers(0, w, 1000).astype(np.int32)
+    py = rng.integers(0, h, 1000).astype(np.int32)
+    np.testing.assert_array_equal(
+        port.swizzle_pid(torch.from_numpy(px), torch.from_numpy(py), w).numpy(),
+        np.asarray(ref.swizzle_pid(jnp.asarray(px), jnp.asarray(py), w)))
+    size = ref.swizzle_dims(w, h)[2]
+    fb = rng.integers(0, 2**32, size, dtype=np.uint64).astype(np.uint32)
+    np.testing.assert_array_equal(
+        to_u32(port.unswizzle_plane(from_u32(fb), w, h)),
+        np.asarray(ref.unswizzle_plane(jnp.asarray(fb), w, h)))
+
+
+def test_resolve_and_rgb8_equal():
+    w, h = 320, 180
+    rng = np.random.default_rng(3)
+    fb = rng.integers(0, 2**24, w * h).astype(np.uint32)
+    fb[rng.random(w * h) < 0.5] = 0xFFFFFFFF
+    img = port.resolve(from_u32(fb), w, h)
+    want = ref.resolve(jnp.asarray(fb), w, h)
+    np.testing.assert_array_equal(to_u32(img), np.asarray(want))
+    np.testing.assert_array_equal(port.image_to_rgb8(img).numpy(),
+                                  np.asarray(ref.image_to_rgb8(want)))
