@@ -3,9 +3,11 @@
 The JAX package beside this one is the reference: every module here
 mirrors the reference module of the same path and is held bit-exact
 against it by `tests/test_torch_*.py`.  This package imports `torch`
-and never `jax`; jax-free reference modules (`constants`, `codec`,
-`formats`, `preprocess`, `render.camera`'s host helpers, `engine.debug`,
-`engine.method`, `engine.timing`, `utils`) are imported, not copied.
+and never `jax`, and nothing of `pcrhpg24_tpu`: what it needs of the
+reference's jax-free modules (`constants`, `codec`, `formats`, `native`,
+`preprocess`, `render.camera`'s host half, `engine.debug`,
+`engine.method`, `engine.timing`, `utils`) it keeps as its own copy
+under the same relative path.
 
 Every Pallas kernel on the ported path has a hand-written CUDA kernel
 for sm_90a under `csrc/`, built at first use by `kernels/build.py`, and

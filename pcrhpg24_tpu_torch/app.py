@@ -1,11 +1,12 @@
 """Application entry: scene, method, render loop — the port's CLI.
 
-Counterpart of `pcrhpg24_tpu/app.py` for the flagship path: a `.tpc` v2
-scene rendered by `huffman_tpu` on one device, offscreen, with PNG
-export and a timing report.
+Counterpart of `pcrhpg24_tpu/app.py` for `.tpc` scenes (v2 fbatch or v1
+tbatch, BC1 colours): the colour frame `huffman_tpu` or the HQS blend
+`huffman_tpu_hqs`, rendered on one device, offscreen, with PNG export
+and a timing report.
 
 Usage:
-  python -m pcrhpg24_tpu_torch.app --scene out/scene.tpc --method huffman_tpu
+  python -m pcrhpg24_tpu_torch.app --scene out/scene.tpc --method huffman_tpu|huffman_tpu_hqs
       [--frames 3] [--width 1920 --height 1080]
       [--yaw -0.15 --pitch -0.57 --radius 1000 --target x y z]
       [--lod 0.1] [--screenshot out/frame.png] [--stats] [--device cuda]
@@ -16,10 +17,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from pcrhpg24_tpu.engine.debug import Debug
-from pcrhpg24_tpu.engine.method import Runtime
-
+from .engine.debug import Debug
+from .engine.method import Runtime
 from .engine.renderer import Renderer, Setting
+
 
 def _not_yet(scene_path: str) -> str:
     """The ROADMAP item that ports a scene kind the reference renders."""
@@ -41,9 +42,11 @@ def build_methods(renderer: Renderer, scene_path: str):
         raise NotImplementedError(_not_yet(scene_path))
     from .engine.native_resource import NativeLasData
     from .render.methods.huffman_tpu import HuffmanTpu
+    from .render.methods.huffman_tpu_hqs import HuffmanTpuHqs
 
     data = NativeLasData.create(scene_path, renderer.device)
     Runtime.add_method(HuffmanTpu(renderer, data))
+    Runtime.add_method(HuffmanTpuHqs(renderer, data))
     return Runtime.methods
 
 

@@ -1,12 +1,17 @@
 """Streaming `.tpc` scene resource on torch device tensors.
 
 Counterpart of `pcrhpg24_tpu/engine/native_resource.py:NativeLasData`
-for `.tpc` v2 (fbatch, BC1 colours): the same header-driven
-preallocation, detached loader thread, per-frame `process()` upload and
-`budget_batches` residency cap.  Device buffers are padded to the
-render chunk (64 batches) and hold u32 words as int32 bits.  v1
-(tbatch) scenes are ROADMAP A9, raw/BC7 colours A11, and the `.huffman`
-load-time path (`HuffmanNativeData`) A7.
+for `.tpc` v2 (fbatch) and v1 (tbatch) scenes with BC1 colours: the same
+header-driven preallocation, detached loader thread, per-frame
+`process()` upload and `budget_batches` residency cap.  Device buffers
+are padded to the render chunk (64 batches) and hold u32 words as int32
+bits.  Both versions also hold the colours in B2's layout (`colors_k`),
+so the projection kernel serves v1 too; the reference projects v1 with
+XLA ops of the same formula and order.  The stream buffer is sized from
+the header's `max_group_words`, which bounds every batch of the file; a
+batch wider than that fails its packing instead of being cut.  Raw/BC7
+colours are ROADMAP A11, the `.huffman` load-time path
+(`HuffmanNativeData`, whose buffer must grow, ROADMAP C2) A7.
 """
 
 from __future__ import annotations
@@ -18,11 +23,11 @@ from queue import Empty, Queue
 import numpy as np
 import torch
 
-from pcrhpg24_tpu.constants import TPU_GROUPS_PER_BATCH, WORKGROUP_SIZE
-from pcrhpg24_tpu.formats.native_file import COLOR_WORDS, read_tpc_batch, read_tpc_header
-
 from .. import device_of
+from ..constants import TPU_GROUPS_PER_BATCH, WORKGROUP_SIZE
+from ..formats.native_file import COLOR_WORDS, read_tpc_batch, read_tpc_header
 from ..render.decode_fixed import pack_fixed_batches
+from ..render.decode_tbatch import pack_native_batches
 from ..render.methods.huffman_tpu import CHUNK
 from ..render.project import colors_kernel_layout
 from .resource import Resource, ResourceState, upload_rows
@@ -41,9 +46,7 @@ class NativeLasData(Resource):
         self.device = device_of(device)
         self.path = path
         self.header = read_tpc_header(path)
-        if self.header.version != 2:
-            raise NotImplementedError(
-                ".tpc v1 (tbatch) scenes: decode kernel B5 is ROADMAP A9")
+        self.version = self.header.version
         if self.header.color_fmt != "bc1":
             raise NotImplementedError(f"{self.header.color_fmt} colours: their "
                                       "payload decode is ROADMAP A11")
@@ -57,7 +60,9 @@ class NativeLasData(Resource):
         self.num_batches = nb
         self.num_batches_loaded = 0
         self.num_points_loaded = 0
+        # stream width: v2 in (8, 128) tiles, v1 in words per group row
         self.maxt = -(-self.header.max_group_words // 128) + 4
+        self.maxw = (-(-self.header.max_group_words // 128) + 2) * 128
         self.dev: dict[str, torch.Tensor] = {}
         self.scale = np.asarray(self.header.scale)
         self.offset = np.asarray(self.header.offset)
@@ -83,11 +88,23 @@ class NativeLasData(Resource):
         B = -(-self.num_batches // CHUNK) * CHUNK
         z = lambda shape, dtype=torch.int32: torch.zeros(
             shape, dtype=dtype, device=self.device)
-        self.dev = dict(
-            widths=z((B, 3, G, 128)),
-            streams=z((B, self.maxt, G, 128)),
-            ptrs=z((B, 1, 64)),
-            starts=z((B, 3, G, 128)),
+        if self.version == 2:
+            self.dev = dict(
+                widths=z((B, 3, G, 128)),
+                streams=z((B, self.maxt, G, 128)),
+                ptrs=z((B, 1, 64)),
+                starts=z((B, 3, G, 128)),
+            )
+        else:
+            self.dev = dict(
+                lj=z((B, 1, 32)),
+                streams=z((B, G, self.maxw)),
+                ptrs=z((B, 384, G)),
+                dD=z((B, 1, 128)),
+                lut=z((B, 1, 128)),
+                starts=z((B, 3, G, 128)),
+            )
+        self.dev.update(
             colors=z((B, COLOR_WORDS["bc1"])),
             colors_k=z((B, 4, 2, G, 128)),
             bbox_min=z((B, 3), torch.float32),
@@ -137,9 +154,14 @@ class NativeLasData(Resource):
         d = self.dev
         n = len(items)
         fbs = [fb for fb, _c in items]
-        packed = pack_fixed_batches(fbs, maxt=self.maxt)
+        if self.version == 2:
+            packed = pack_fixed_batches(fbs, maxt=self.maxt)
+            keys = ("widths", "streams", "ptrs", "starts")
+        else:
+            packed = pack_native_batches(fbs, maxw=self.maxw)
+            keys = ("lj", "streams", "ptrs", "dD", "lut", "starts")
         packed["streams"] = packed["streams"].view(np.int32)
-        for key in ("widths", "streams", "ptrs", "starts"):
+        for key in keys:
             upload_rows(d[key], start, packed[key])
         colors = np.stack([c for _fb, c in items]).astype(np.uint32)
         upload_rows(d["colors"], start, colors.view(np.int32))

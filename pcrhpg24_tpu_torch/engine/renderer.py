@@ -2,7 +2,7 @@
 
 Counterpart of `pcrhpg24_tpu/engine/renderer.py`: owns the camera and
 orbit controls, drives update/render, aggregates frame timings and
-saves screenshots through the shared `utils/png.write_png`.  Where the
+saves screenshots through `utils/png.write_png`.  Where the
 reference blocks on the image with `block_until_ready`, this loop
 calls `torch.cuda.synchronize()`; on a CUDA device each frame's render
 is also bracketed by CUDA events, whose elapsed time lands in
@@ -16,13 +16,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pcrhpg24_tpu.engine.debug import Debug
-from pcrhpg24_tpu.engine.timing import Timings
-from pcrhpg24_tpu.utils.png import write_png
-
 from .. import device_of
 from ..render.camera import Camera, OrbitControls
 from ..render.raster import image_to_rgb8
+from ..utils.png import write_png
+from .debug import Debug
+from .timing import Timings
 
 
 @dataclass

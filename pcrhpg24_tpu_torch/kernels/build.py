@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-One `nvcc` call compiles every source into a shared library with a
-plain C interface (no PyTorch headers: seconds, not minutes), which
-`ctypes` loads.  The build happens at first use, into
+One `nvcc` per source, all started together, compiles the sources to
+objects, and one more links them into a shared library with a plain C
+interface (no PyTorch headers: seconds, not minutes), which `ctypes`
+loads.  The build happens at first use, into
 `build/torch_kernels/<hash>/` under the checkout, keyed by a hash of
 the sources and flags, so a fresh checkout builds everything on its
 first kernel call.
@@ -34,10 +35,12 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libpcr_kernels.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [  # per source, with -c
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 
 def sources() -> list[Path]:
@@ -45,7 +48,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -77,15 +80,31 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources())]
+    tag = str(os.getpid())
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    text, failed = "", False
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        text += " ".join(cmd) + "\n" + out
+        failed |= proc.returncode != 0
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for _c, o, _p in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        text += " ".join(cmd) + "\n" + res.stdout + res.stderr
+        failed = res.returncode != 0
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    text = " ".join(cmd) + "\n" + res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     log.write_text(text)
     os.replace(tmp, lib)
     return lib, seconds, text

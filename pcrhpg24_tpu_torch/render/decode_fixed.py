@@ -12,8 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pcrhpg24_tpu.constants import POINTS_PER_THREAD, TPU_GROUPS_PER_BATCH
-
+from ..constants import POINTS_PER_THREAD, TPU_GROUPS_PER_BATCH
 from ..kernels.build import I, P, Kernel, check_cuda
 from ..u32 import MASK32, widen
 

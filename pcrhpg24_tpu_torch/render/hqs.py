@@ -1,0 +1,72 @@
+"""HQS blend sums: kernel B4 and its plain version.
+
+Counterpart of `pcrhpg24_tpu/render/pallas_hqs.py`.  High-quality
+shading averages, per pixel, the colour of every point whose depth lies
+within 1 % of the pixel's nearest depth.  For each (pid, dep, pay) entry
+of a frame's stream:
+
+    accept = (0 <= pid < size) & (w <= old * 1.01f)
+    w = f32(dep bits), old = f32(fb_depth[pid] bits)
+
+and an accepted entry adds `pay & 255`, `(pay >> 8) & 255`,
+`(pay >> 16) & 255` and 1 into four u32 planes (r, g, b, n), which wrap
+mod 2**32.  The reference gets the planes from pid-sorted rows through
+one-hot bf16 matmuls (`_hqs_matscatter_kernel`), because the TPU has no
+atomics; the CUDA kernel (`csrc/hqs.cu`) does four `atomicAdd`s per
+accepted entry of the unsorted stream, and integer sums do not depend on
+the order.  Planes are int32 tensors holding u32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.build import I, L, P, Kernel, check_cuda
+from ..u32 import widen
+
+HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, P, L, I])
+TOLERANCE = 1.01  # huffman_tpu_hqs.py:153, multiplied in f32
+
+
+def hqs_sums_plain(parts, fb_depth, size: int):
+    """(r, g, b, n) planes, each (size,) int32 u32 bits, from every
+    (pid, dep, pay) part (int32 u32 bits, any shape) and the dense
+    (size,) min-depth plane `fb_depth` in the same swizzled pid space."""
+    device = fb_depth.device
+    tol = torch.tensor(TOLERANCE, dtype=torch.float32, device=device)
+    old_all = fb_depth.contiguous().view(torch.float32)
+    planes = torch.zeros((4, size + 1), dtype=torch.int64, device=device)
+    for pid, dep, pay in parts:
+        q = widen(pid.reshape(-1))
+        live = q < size
+        w = dep.reshape(-1).contiguous().view(torch.float32)
+        old = old_all[torch.clamp(q, max=size - 1)]
+        accept = live & (w <= old * tol)
+        idx = torch.where(accept, q, torch.full_like(q, size))
+        p = widen(pay.reshape(-1))
+        for k, v in enumerate((p & 255, (p >> 8) & 255, (p >> 16) & 255,
+                               torch.ones_like(p))):
+            planes[k].index_add_(0, idx, v)
+    out = planes[:, :size].to(torch.int32)  # wraps mod 2**32, as u32 sums do
+    return tuple(out[k] for k in range(4))
+
+
+def hqs_sums(parts, fb_depth, size: int):
+    """B4: the planes of `hqs_sums_plain`, one kernel launch per part.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Each part's tensors are int32 (u32 bits) of one shape; `fb_depth` is
+    a (size,) int32 plane on the same card.
+    """
+    if not fb_depth.is_cuda:
+        return hqs_sums_plain(parts, fb_depth, size)
+    check_cuda("fb_depth", fb_depth, torch.int32, (size,))
+    planes = torch.zeros((4, size), dtype=torch.int32, device=fb_depth.device)
+    for pid, dep, pay in parts:
+        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
+            check_cuda(name, t, torch.int32, pid.shape)
+        if pid.numel():
+            HQS_SUMS.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
+                            fb_depth.data_ptr(), planes.data_ptr(),
+                            pid.numel(), size)
+    return tuple(planes[k] for k in range(4))

@@ -1,8 +1,8 @@
 """Host half of `pcrhpg24_tpu/render/methods/huffman_mem_iter.py`.
 
 `HuffmanMemIter.update` and `frame_setup` (huffman_mem_iter.py:135-190)
-are host NumPy code over the reference's jax-free camera helpers; the
-flagship method inherits them.  The `.huffman` XLA method itself is
+are host NumPy code over the camera's host half; the flagship method
+inherits them.  The `.huffman` XLA method itself is
 ROADMAP A11.
 """
 
@@ -10,10 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from pcrhpg24_tpu.constants import POINTS_PER_THREAD, RENDER_CHUNK_BATCHES
-from pcrhpg24_tpu.engine.debug import Debug
-from pcrhpg24_tpu.engine.method import Method, Runtime
-
+from ...constants import POINTS_PER_THREAD, RENDER_CHUNK_BATCHES
+from ...engine.debug import Debug
+from ...engine.method import Method, Runtime
 from ..camera import batches_in_frustum, frustum_planes, lod_points_per_thread
 
 CHUNK = RENDER_CHUNK_BATCHES  # lod_full padding, as the reference's

@@ -1,10 +1,11 @@
-"""`huffman_tpu` — the flagship colour frame on `.tpc` v2 scenes.
+"""`huffman_tpu` — the flagship colour frame on `.tpc` scenes.
 
 Counterpart of `pcrhpg24_tpu/render/methods/huffman_tpu.py`: per frame,
-device frustum cull + LOD, then for each live 64-batch chunk the fbatch
-decode (B1) and the fused projection + BC1 + run collapse (B2), then the
-exact u64-min resolve (B3) over every chunk's stream, the plane split,
-the unswizzle and the background fill.
+device frustum cull + LOD, then for each live 64-batch chunk the
+geometry decode — fbatch (v2, B1) or tbatch (v1, B5) — and the fused
+projection + BC1 + run collapse (B2), then the exact u64-min resolve
+(B3) over every chunk's stream, the plane split, the unswizzle and the
+background fill.
 
 There is no sort: the reference's per-chunk `lax.sort` and its
 matscatter merge exist only because the TPU has no atomics
@@ -18,11 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pcrhpg24_tpu.constants import POINTS_PER_THREAD
-from pcrhpg24_tpu.engine.debug import Debug
-
+from ...constants import POINTS_PER_THREAD
+from ...engine.debug import Debug
 from ..camera import batch_translations, frame_setup_device
 from ..decode_fixed import decode_fixed_batches, decode_fixed_plain
+from ..decode_tbatch import decode_native_batches, decode_native_plain
 from ..project import project_batches, project_plain
 from ..raster import (
     EMPTY,
@@ -37,21 +38,30 @@ from .base import HuffmanMemIterHost
 CHUNK = 64  # batches per decode + project pass (4.2M points)
 
 
-def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
-                        nchunks: int, cull: bool,
-                        points: int = POINTS_PER_THREAD, plain: bool = False):
-    """One colour frame -> (fb_payload (H*W,) int32 bits, image (H,W) int32).
+def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
+                  nchunks: int, cull: bool, points: int = POINTS_PER_THREAD,
+                  fmt: str = "fixed", plain: bool = False,
+                  collapse: bool = True):
+    """Every live chunk's (pid, dep, pay) stream -> (parts, size, device).
 
     frame_params (40,) f32: view(16) | proj_params(6) | lod_floor | B |
     wvp(16); tb (B_pad, 4) f32 per-batch folded translations; scale
     (3,) f32.  `points` is the static LOD bucket: every chain decodes
-    only that prefix.  `plain=True` runs every stage's plain torch
-    version on whatever device the tensors are on (the gate the kernels
-    are held to); otherwise the stages dispatch on the tensors' device.
+    only that prefix.  `fmt` is "fixed" (v2, B1) or "tbatch" (v1, B5).
+    `collapse=False` (HQS) keeps every entry.  `plain=True` runs every
+    stage's plain torch version on whatever device the tensors are on
+    (the gate the kernels are held to); otherwise the stages dispatch on
+    the tensors' device.
     """
-    decode, project, planes = (
-        (decode_fixed_plain, project_plain, u64_min_planes_plain) if plain
-        else (decode_fixed_batches, project_batches, u64_min_planes))
+    if fmt == "fixed":
+        keys = ("widths", "streams", "ptrs", "starts")
+        decode = decode_fixed_plain if plain else decode_fixed_batches
+    elif fmt == "tbatch":
+        keys = ("lj", "streams", "ptrs", "dD", "lut", "starts")
+        decode = decode_native_plain if plain else decode_native_batches
+    else:
+        raise ValueError(f"unknown fmt {fmt!r}")
+    project = project_plain if plain else project_batches
     view = frame_params[0:16].reshape(4, 4)
     proj_params = frame_params[16:22]
     lod_n = frame_setup_device(
@@ -71,21 +81,34 @@ def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
     parts = []
     for c in torch.nonzero(live).flatten().tolist():
         sl = slice(c * CHUNK, (c + 1) * CHUNK)
-        coords = decode(dev["widths"][sl], dev["streams"][sl], dev["ptrs"][sl],
-                        dev["starts"][sl], points=points)
+        coords = decode(*(dev[k][sl] for k in keys), points=points)
         parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl],
                              tb[sl], lod_n[sl], frame12, width, height,
-                             points=points))
+                             points=points, collapse=collapse))
+    return parts, size, lod_n.device
+
+
+def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
+                        nchunks: int, cull: bool,
+                        points: int = POINTS_PER_THREAD, fmt: str = "fixed",
+                        plain: bool = False):
+    """One colour frame -> (fb_payload (H*W,) int32 bits, image (H,W) int32).
+
+    Arguments as `frame_streams`.
+    """
+    parts, size, device = frame_streams(dev, frame_params, tb, scale, width,
+                                        height, nchunks, cull, points, fmt,
+                                        plain)
     if parts:
-        _fb_d, fb_p = planes(parts, size)
+        _fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
     else:
-        fb_p = torch.full((size,), EMPTY, dtype=torch.int32, device=lod_n.device)
+        fb_p = torch.full((size,), EMPTY, dtype=torch.int32, device=device)
     fb_p = unswizzle_plane(fb_p, width, height)
     return fb_p, resolve(fb_p, width, height)
 
 
 class HuffmanTpu(HuffmanMemIterHost):
-    """Flagship native-format method (B1 -> B2 -> B3)."""
+    """Flagship native-format method ((B1 or B5) -> B2 -> B3)."""
 
     def __init__(self, renderer, tpc):
         self.name = "huffman_tpu"
@@ -128,7 +151,7 @@ class HuffmanTpu(HuffmanMemIterHost):
             scale=self._scale, width=renderer.width, height=renderer.height,
             nchunks=-(-las.num_batches // CHUNK),
             cull=Debug.frustum_culling_enabled and Debug.update_frustum,
-            points=points,
+            points=points, fmt="fixed" if las.version == 2 else "tbatch",
         )
 
     def render(self, renderer):

@@ -1,0 +1,118 @@
+"""Where a frame's time goes on the card: a `torch.profiler` breakdown.
+
+Renders a `.tpc` scene through the app's method for a few warm frames,
+then traces `--frames` more with CPU and CUDA activity and prints, per
+frame: the host wall time, the device busy time (union of the kernels'
+and copies' device intervals), the device idle share
+(1 - busy / wall), each device kernel's time and launch count, and the
+peak device memory.  Run on a host with a card:
+
+    python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc \
+        [--method huffman_tpu|huffman_tpu_hqs] [--view orbit] [--frames 5]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+from ..engine.debug import Debug
+from ..engine.method import Runtime
+from ..engine.renderer import Renderer, Setting
+
+# bench.py:176-183
+VIEWS = {
+    "orbit": Setting(yaw=0.5, pitch=-0.9, radius=2500.0, target=(1000.0, 1000.0, 100.0)),
+    "closeup": Setting(yaw=2.4, pitch=-0.25, radius=180.0, target=(1000.0, 1000.0, 60.0)),
+    "oblique": Setting(yaw=-1.1, pitch=-0.08, radius=1400.0, target=(1000.0, 1000.0, 40.0)),
+}
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile(scene: str, method: str, view: str, frames: int, width: int,
+            height: int, lod: float) -> dict:
+    from ..app import build_methods
+
+    Debug.lod = lod
+    r = Renderer(width, height, "cuda")
+    r.apply_setting(VIEWS[view])
+    build_methods(r, scene)
+    Runtime.set_selected(method)
+    m = Runtime.selected
+    m.update(r)
+    m.las.wait_loaded(r)
+    r.loop(m.update, m.render, frames=2)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r.loop(m.update, m.render, frames=frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    kernels = defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        intervals.append((s, t))
+        kernels[e.name][0] += (t - s) / 1e3 / frames
+        kernels[e.name][1] += 1
+    busy = busy_us(intervals) / 1e3 / frames
+    out = dict(wall_ms=wall_ms, busy_ms=busy,
+               idle_share=1.0 - busy / wall_ms if wall_ms else float("nan"),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               kernels={k: (ms, n / frames) for k, (ms, n) in kernels.items()})
+    m.las.unload()
+    Runtime.clear()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", required=True)
+    ap.add_argument("--method", default="huffman_tpu")
+    ap.add_argument("--view", default="orbit", choices=sorted(VIEWS))
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--lod", type=float, default=1.0)
+    ap.add_argument("--top", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_frame: no card", file=sys.stderr)
+        return 1
+    res = profile(args.scene, args.method, args.view, args.frames, args.width,
+                  args.height, args.lod)
+    print(f"[profile] {args.method} {args.view} {args.scene}: wall "
+          f"{res['wall_ms']:.3f} ms/frame, device busy {res['busy_ms']:.3f} "
+          f"ms/frame, idle share {res['idle_share']:.3f}, peak "
+          f"{res['peak_bytes']:,} B ({args.frames} frames under the profiler, "
+          f"{torch.cuda.get_device_name(0)})")
+    top = sorted(res["kernels"].items(), key=lambda kv: -kv[1][0])
+    rest = sum(ms for _k, (ms, _n) in top[args.top:])
+    for name, (ms, n) in top[: args.top]:
+        share = ms / res["busy_ms"] if res["busy_ms"] else 0.0
+        print(f"[profile]   {ms:.3f} ms/frame ({share:.1%} of busy), {n:g} "
+              f"launches/frame: {name[:90]}")
+    print(f"[profile]   {rest:.3f} ms/frame in {max(len(top) - args.top, 0)} "
+          f"other device kernels and copies")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

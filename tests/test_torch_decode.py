@@ -16,6 +16,7 @@ from pcrhpg24_tpu.render import pallas_decode_fixed as ref
 from pcrhpg24_tpu.render.native_decode_xla import decode_fixed_xla
 from pcrhpg24_tpu_torch.render import decode_fixed as port
 from pcrhpg24_tpu_torch.u32 import from_u32
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _cloud(seed):

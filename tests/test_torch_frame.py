@@ -11,7 +11,8 @@
   and against `render_frame_native(use_pallas=False)` on the exact
   power-of-two frame.
 * `python -m pcrhpg24_tpu_torch.app --screenshot` writes a PNG
-  byte-equal to the composed reference image's.
+  byte-equal to the composed reference image's, for the v2 scene and
+  for a v1 (tbatch) copy of it.
 """
 
 import numpy as np
@@ -19,8 +20,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from pcrhpg24_tpu.engine.debug import Debug
-from pcrhpg24_tpu.engine.method import Runtime
 from pcrhpg24_tpu.engine.native_resource import NativeLasData as RefData
 from pcrhpg24_tpu.formats.las import write_las
 from pcrhpg24_tpu.preprocess import preprocess_las_tpc
@@ -33,6 +32,8 @@ from pcrhpg24_tpu.utils.png import write_png_bytes
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 from pcrhpg24_tpu_torch import app
 from pcrhpg24_tpu_torch.convert import dev_from_numpy, dev_to_numpy
+from pcrhpg24_tpu_torch.engine.debug import Debug
+from pcrhpg24_tpu_torch.engine.method import Runtime
 from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
 from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
 from pcrhpg24_tpu_torch.render.camera import frame_setup_device
@@ -40,6 +41,7 @@ from pcrhpg24_tpu_torch.render.methods.huffman_tpu import (
     HuffmanTpu,
     render_frame_native,
 )
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 320, 180
 # bench.py's three views, scaled to the 900 m test scene
@@ -125,6 +127,18 @@ def test_native_resource_dev_equal(scene):
     back = dev_to_numpy(dev_from_numpy(ref_dev, "cpu"))
     for k, v in ref_dev.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_batch_wider_than_buffer_raises(scene):
+    """The v2 stream buffer is sized from the header, which bounds every
+    batch; a batch wider than the buffer stops the load with an error
+    instead of being cut or lost (ROADMAP C2)."""
+    tpc, _ref, _ref_dev = scene
+    las = NativeLasData.create(tpc, "cpu")
+    las.maxt = 1  # narrower than any batch of the scene
+    with pytest.raises(ValueError):
+        las.wait_loaded()
+    las.unload()
 
 
 def _reference_image(ref, ref_dev, setting, lod=1.0):
@@ -223,11 +237,23 @@ def test_app_png_equals_reference(scene, tmp_path):
     assert out.read_bytes() == write_png_bytes(rgb)
 
 
-def test_tbatch_scene_raises(scene):
-    """`.tpc` v1 (tbatch) needs decode kernel B5: ROADMAP A9."""
-    tpc, _ref, _dev = scene
+def test_tbatch_scene_png_equals_reference(scene, tmp_path):
+    """A `.tpc` v1 (tbatch) copy of the scene decodes to the same
+    points, so the app's PNG (B5 -> B2 -> B3 on the CPU) equals the
+    composed reference image of the v2 scene byte for byte."""
+    tpc, ref, ref_dev = scene
     v1 = tpc[:-4] + "_v1.tpc"
     preprocess_las_tpc(tpc[:-4] + ".las", v1, sort=True, verbose=False,
                        codec="huffman")
-    with pytest.raises(NotImplementedError, match="A9"):
-        NativeLasData.create(v1, "cpu")
+    assert NativeLasData.create(v1, "cpu").version == 1
+    s = VIEWS["oblique"]
+    out = tmp_path / "port_v1.png"
+    assert app.main([
+        "--scene", v1, "--method", "huffman_tpu", "--device", "cpu",
+        "--width", str(W), "--height", str(H), "--lod", "1.0",
+        "--yaw", str(s.yaw), "--pitch", str(s.pitch), "--radius", str(s.radius),
+        "--target", *map(str, s.target), "--screenshot", str(out),
+    ]) == 0
+    want = _reference_image(ref, ref_dev, s)
+    rgb = np.asarray(ref_raster.image_to_rgb8(jnp.asarray(want)))
+    assert out.read_bytes() == write_png_bytes(rgb)

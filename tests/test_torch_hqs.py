@@ -1,0 +1,202 @@
+"""Port B4 (HQS blend sums) and the HQS frame vs the JAX reference, on the CPU.
+
+* `hqs_sums_plain` gives the four (r, g, b, n) planes of the TPU path
+  (`pallas_hqs.hqs_sums_from_rows` over pid-sorted rows, interpret
+  mode) bit for bit, and of a direct NumPy accumulation.
+* The port's `huffman_tpu_hqs` frame (decode -> uncollapsed projection
+  -> B3 depth prepass -> B4 sums -> unswizzle -> unsigned divide) is
+  bit-exact against the reference's `hqs_frame_native(use_pallas=False)`
+  with both of its programs compiled per op, for bench's three views at
+  LOD 1.0 and one at LOD 0.1: image, depth plane and count plane.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcrhpg24_tpu.engine.native_resource import NativeLasData as RefData
+from pcrhpg24_tpu.formats.las import write_las
+from pcrhpg24_tpu.preprocess import preprocess_las_tpc
+from pcrhpg24_tpu.render import raster as ref_raster
+from pcrhpg24_tpu.render.methods.huffman_tpu_hqs import (
+    hqs_blend_native,
+    hqs_prepass_native,
+)
+from pcrhpg24_tpu.render.pallas_hqs import hqs_sums_from_rows
+from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
+from pcrhpg24_tpu_torch import app
+from pcrhpg24_tpu_torch.engine.debug import Debug
+from pcrhpg24_tpu_torch.engine.method import Runtime
+from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
+from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
+from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
+from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import (
+    HuffmanTpuHqs,
+    hqs_frame_native,
+)
+from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
+
+SIZE = 49_152  # 48 swizzle tiles of 1024
+W, H = 320, 180
+# bench.py's three views, scaled to the 900 m test scene
+VIEWS = {
+    "orbit": Setting(yaw=0.5, pitch=-0.9, radius=1500.0, target=(450.0, 450.0, 50.0)),
+    "closeup": Setting(yaw=2.4, pitch=-0.25, radius=120.0, target=(450.0, 450.0, 60.0)),
+    "oblique": Setting(yaw=-1.1, pitch=-0.08, radius=700.0, target=(450.0, 450.0, 40.0)),
+}
+O0 = {"xla_backend_optimization_level": 0}
+
+
+@pytest.fixture(autouse=True)
+def _restore_globals():
+    lod = Debug.lod
+    yield
+    Debug.lod = lod
+    Runtime.clear()
+
+
+def _hqs_stream(seed, rows=4, n=4096):
+    """pid-sorted rows with heavy collisions, sentinels and a long run."""
+    rng = np.random.default_rng(seed)
+    pid = rng.integers(0, SIZE, rows * n).astype(np.uint32)
+    pid[rng.random(rows * n) < 0.3] = SIZE
+    pid[: 3000] = 777  # one run across window borders
+    w = rng.random(rows * n).astype(np.float32) * 100 + 1
+    # the run's depths straddle its 1 % tolerance
+    w[: 3000] = 5 * (1 + rng.random(3000).astype(np.float32) * 0.02)
+    dep = w.view(np.uint32)
+    pay = rng.integers(0, 2**24, rows * n, dtype=np.uint64).astype(np.uint32)
+    fbd = np.full(SIZE, 0xFFFFFFFF, np.uint32)
+    np.minimum.at(fbd, pid[pid < SIZE], dep[pid < SIZE])
+    return pid, dep, pay, fbd
+
+
+def test_hqs_sums_plain_equals_rows_kernel():
+    rows, n = 4, 4096
+    pid, dep, pay, fbd = _hqs_stream(5, rows, n)
+    sp, sd, sy = jax.lax.sort(
+        [jnp.asarray(a.reshape(rows, n)) for a in (pid, dep, pay)],
+        num_keys=1, is_stable=False, dimension=1)
+    want = hqs_sums_from_rows(sp, sd, sy, jnp.asarray(fbd), SIZE, interpret=True)
+    # the port reads the UNSORTED stream, split into two parts
+    h = len(pid) // 3
+    parts = [tuple(from_u32(a[:h]) for a in (pid, dep, pay)),
+             tuple(from_u32(a[h:]) for a in (pid, dep, pay))]
+    got = hqs_sums(parts, from_u32(fbd), SIZE)  # CPU tensors: the plain version
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+    assert to_u32(got[3])[777] > 100
+
+
+def test_hqs_sums_plain_equals_numpy_and_wraps():
+    """Direct accumulation with the f32 tolerance gate; the planes wrap
+    mod 2**32 like the reference's u32 planes."""
+    pid, dep, pay, fbd = _hqs_stream(9)
+    old = fbd.view(np.float32)
+    w = dep.view(np.float32)
+    keep = (pid < SIZE) & (w <= old[np.minimum(pid, SIZE - 1)] * np.float32(1.01))
+    want = np.zeros((4, SIZE), np.uint64)
+    for a, c in zip(want, (pay & 0xFF, (pay >> 8) & 0xFF, (pay >> 16) & 0xFF,
+                           np.ones_like(pay))):
+        np.add.at(a, pid[keep], c[keep].astype(np.uint64))
+    parts = [tuple(from_u32(a) for a in (pid, dep, pay))]
+    got = hqs_sums_plain(parts, from_u32(fbd), SIZE)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), w_.astype(np.uint32))
+    # 2**24 + 1 entries on one pixel at pay 255 wrap the r plane
+    many = 2**24 + 1
+    p = torch.full((many,), 5, dtype=torch.int32)
+    d = torch.full((many,), 0x3F800000, dtype=torch.int32)
+    y = torch.full((many,), 255, dtype=torch.int32)
+    fb = torch.full((8,), 0x3F800000, dtype=torch.int32)
+    r, _g, _b, n = hqs_sums_plain([(p, d, y)], fb, 8)
+    assert to_u32(r)[5] == (255 * many) % 2**32
+    assert to_u32(n)[5] == many
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    """Two-batch `.tpc` v2 scene (test_torch_frame's), loaded by the
+    reference; `ref.dev` as numpy."""
+    d = tmp_path_factory.mktemp("thqs")
+    las, tpc = str(d / "s.las"), str(d / "s.tpc")
+    xyz, rgb = terrain_cloud(2 * 65536, seed=7, extent=900.0)
+    grid = cloud_to_grid(xyz)
+    write_las(las, grid[:, 0], grid[:, 1], grid[:, 2], rgb)
+    preprocess_las_tpc(las, tpc, sort=True, verbose=False)
+    ref = RefData.create(tpc).wait_loaded()
+    return tpc, ref, {k: np.asarray(v) for k, v in ref.dev.items()}
+
+
+_COMPILED = {}
+
+
+def _per_op(fn, dyn: dict, static: dict):
+    """`fn` compiled with every f32 op rounded on its own (XLA O0),
+    cached per static arguments, called on the dynamic ones."""
+    key = (fn.__name__, tuple(sorted(static.items())))
+    if key not in _COMPILED:
+        _COMPILED[key] = fn.lower(**dyn, **static).compile(compiler_options=O0)
+    return _COMPILED[key](**dyn)
+
+
+def _reference_hqs(ref_dev, args):
+    """The reference's HQS frame on the port's frame arguments."""
+    dyn = dict(dev={k: jnp.asarray(v) for k, v in ref_dev.items()},
+               frame_params=jnp.asarray(args["frame_params"].numpy()),
+               scale=jnp.asarray(args["scale"].numpy()),
+               offset_rel=jnp.zeros(3, jnp.float32),
+               tb=jnp.asarray(args["tb"].numpy()))
+    static = dict(width=W, height=H, nchunks=args["nchunks"], use_pallas=False,
+                  cull=args["cull"], fmt=args["fmt"], points=args["points"],
+                  color_fmt="bc1")
+    fb_depth, _streams = _per_op(hqs_prepass_native, dyn, static)
+    acc_n, img = _per_op(hqs_blend_native, dict(dyn, fb_depth=fb_depth,
+                                                streams=None), static)
+    return (np.asarray(ref_raster.unswizzle_plane(fb_depth, W, H)),
+            np.asarray(acc_n), np.asarray(img))
+
+
+@pytest.mark.parametrize("view,lod", [("orbit", 1.0), ("closeup", 1.0),
+                                      ("oblique", 1.0), ("oblique", 0.1)])
+def test_hqs_frame_bit_exact_vs_reference(scene, view, lod):
+    tpc, _ref, ref_dev = scene
+    Debug.lod = lod
+    r = Renderer(W, H, "cpu")
+    r.apply_setting(VIEWS[view])
+    r.controls_update()
+    las = NativeLasData.create(tpc, "cpu")
+    method = HuffmanTpuHqs(r, las)
+    method.update(r)
+    las.wait_loaded()
+    args = method.frame_args(r)
+    assert args["fmt"] == "fixed"
+    fb_d, acc_n, img = hqs_frame_native(**args)
+    want_d, want_n, want_img = _reference_hqs(ref_dev, args)
+    np.testing.assert_array_equal(to_u32(img), want_img)
+    np.testing.assert_array_equal(to_u32(fb_d), want_d)
+    np.testing.assert_array_equal(to_u32(acc_n), want_n)
+    assert (want_img != 0x00443322).sum() > 500
+    assert want_n.max() > 1  # the blend averaged several points somewhere
+
+
+def test_app_renders_hqs(scene, tmp_path):
+    """`--method huffman_tpu_hqs` is registered and renders a PNG."""
+    tpc, _ref, _dev = scene
+    s = VIEWS["orbit"]
+    out = tmp_path / "hqs.png"
+    rr = app.run([
+        "--scene", tpc, "--method", "huffman_tpu_hqs", "--device", "cpu",
+        "--width", str(W), "--height", str(H), "--lod", "1.0",
+        "--yaw", str(s.yaw), "--pitch", str(s.pitch), "--radius", str(s.radius),
+        "--target", *map(str, s.target), "--screenshot", str(out),
+    ])
+    assert Runtime.selected.name == "huffman_tpu_hqs"
+    assert [m.name for m in Runtime.methods] == ["huffman_tpu", "huffman_tpu_hqs"]
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    fb_d, acc_n = rr.last_fb
+    assert fb_d.shape == acc_n.shape == (W * H,)
+    assert (rr.last_image != 0x00443322).sum() > 500

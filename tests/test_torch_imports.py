@@ -1,11 +1,15 @@
-"""The port never loads jax, and never carries on without its device.
+"""The port never loads jax nor the JAX package, and never carries on
+without its device.
 
 The machine with the card has no jax at all, so importing any module of
-`pcrhpg24_tpu_torch` must leave `jax` out of `sys.modules`.  This runs
-in a fresh interpreter because this test process (tests/conftest.py)
-has imported jax already.
+`pcrhpg24_tpu_torch` must leave `jax` out of `sys.modules`; and the port
+keeps its own copy of whatever it needs of `pcrhpg24_tpu`, so no module
+of the port, and not `chip_smoke.py`, imports that package at all.  The
+import checks run in a fresh interpreter because this test process
+(tests/conftest.py) has imported jax already.
 """
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -51,6 +55,52 @@ def test_every_module_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_every_module_imports_without_the_jax_package():
+    mods = _modules()
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {mods!r}:
+            importlib.import_module(name)
+        bad = sorted(k for k in sys.modules
+                     if k == "pcrhpg24_tpu" or k.startswith("pcrhpg24_tpu."))
+        assert not bad, bad
+        print("ok", len({mods!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imports_of_the_jax_package(path: Path) -> list[str]:
+    """`import pcrhpg24_tpu[...]` / `from pcrhpg24_tpu[...] import` lines."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        for n in names:
+            if n == "pcrhpg24_tpu" or n.startswith("pcrhpg24_tpu."):
+                found.append(f"{path.name}:{node.lineno} {n}")
+    return found
+
+
+def test_no_source_imports_the_jax_package(tmp_path):
+    files = sorted((REPO / "pcrhpg24_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) >= 30
+    bad = [hit for f in files for hit in _imports_of_the_jax_package(f)]
+    assert not bad, bad
+    # the scan sees what it looks for
+    probe = tmp_path / "import_probe.py"
+    probe.write_text("import pcrhpg24_tpu.constants\nfrom pcrhpg24_tpu import app\n"
+                     "from pcrhpg24_tpu_torch import app as ok\n")
+    assert len(_imports_of_the_jax_package(probe)) == 2
+
+
 def test_cuda_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
@@ -63,14 +113,16 @@ def test_cuda_device_raises_without_a_card():
 
 
 def test_kernel_source_hash_tracks_sources():
-    import pcrhpg24_tpu_torch.render.methods.huffman_tpu  # noqa: F401  (all wrappers)
+    import pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs  # noqa: F401  (all wrappers)
 
     srcs = {p.name for p in build.sources()}
-    assert {"decode_fixed.cu", "project.cu", "raster.cu"} <= srcs
+    assert {"decode_fixed.cu", "project.cu", "raster.cu", "hqs.cu",
+            "decode_native.cu"} <= srcs
     assert len(build.source_hash()) == 16
     assert "-fmad=false" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
-    assert set(build.KERNELS) >= {"pcr_decode_fixed", "pcr_project", "pcr_u64_min"}
+    assert set(build.KERNELS) >= {"pcr_decode_fixed", "pcr_project", "pcr_u64_min",
+                                  "pcr_hqs_sums", "pcr_decode_native"}
 
 
 def test_cpu_tensors_never_launch():

@@ -26,6 +26,7 @@ from pcrhpg24_tpu.render.pallas_decode_fixed import pack_fixed_batches
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 from pcrhpg24_tpu_torch.render import project as port
 from pcrhpg24_tpu_torch.u32 import from_u32
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 320, 180
 

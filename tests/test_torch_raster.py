@@ -16,6 +16,7 @@ import torch
 from pcrhpg24_tpu.render import raster as ref
 from pcrhpg24_tpu_torch.render import raster as port
 from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 SIZE = 49_152  # 48 swizzle tiles of 1024
 
