@@ -7,30 +7,40 @@ Run from the repo root on a host with one NVIDIA H100:
 
 Phases, each of which exits non-zero on failure:
  1. environment: card name and power limit, torch, CUDA, nvcc;
- 2. build: every kernel (B1-B5) from `csrc/` with one nvcc per source,
-    all started together, then one link;
+ 2. build: every kernel (B1-B6, B8-B10) from `csrc/` with one nvcc per
+    source, all started together, then one link;
  3. scenes: bench.py's synthetic terrain (`--batches` x 65,536 points,
     cached under out/) written by the port's own preprocessor twice, as
-    `.tpc` v2 (fbatch) and as `.tpc` v1 (tbatch), loaded onto the card;
+    `.tpc` v2 (fbatch) and as `.tpc` v1 (tbatch), and by the port's
+    Potree builder and `.wg` converter as `.wg`; all loaded onto the card;
  4. kernel gates, each kernel bit-exact against its plain torch version
     on the card: B1 (and the NumPy protocol mirror) and B5 (and its
     NumPy mirror) at points 64 and 32; B2 and B3 for bench.py's three
     views in colour and HQS modes; B4 on the orbit view's uncollapsed
-    streams of every live chunk.  Each kernel is also held against its
-    plain version run on the CPU (4 batches of B1/B5, the orbit chunk of
-    B2/B3, one orbit chunk of B4), the path the CPU tests hold to the
+    streams of every live chunk; B6 on the parametric frame's pid-sorted
+    stream for each of its views and on the colour orbit chunk's stream
+    sorted by pid, where it must also equal B3's planes; B8 on that
+    stream sorted by (pid, depth, payload), equal to B3's planes, with
+    and without the depth plane; B9 on the HQS orbit chunk's stream
+    sorted by pid, equal to B4's sums; B10 on the first 4,096 tiles of
+    that stream.  Each kernel is also held against its plain version run
+    on the CPU on a cut-down input, the path the CPU tests hold to the
     JAX reference;
- 5. main paths through `pcrhpg24_tpu_torch.app` at 1920x1080, each view
-    2 warm + 10 timed frames, with every kernel's launch count reset
-    just before and read just after: `huffman_tpu` on v2 (B1, B2, B3),
-    `huffman_tpu_hqs` on v2 (B1, B2, B3, B4) and `huffman_tpu` on v1
-    (B5, B2, B3).  Each listed kernel must have launched, and each image
-    must show points and equal, bit for bit, the frame built from the
-    plain torch versions alone;
- 6. times: median device frame (CUDA events), visible points/s, and
-    each kernel beside its plain version, its bound and, where one
-    PyTorch call computes the same function, that call, at the frame's
-    shapes (one orbit chunk).
+ 5. main paths at 1920x1080, each view 2 warm + 10 timed frames, with
+    every kernel's launch count reset just before and read just after:
+    through `pcrhpg24_tpu_torch.app`, `huffman_tpu` on v2 (B1, B2, B3),
+    `huffman_tpu_hqs` on v2 (B1, B2, B3, B4), `huffman_tpu` on v1 (B5,
+    B2, B3) and `--scene parametric` (B6) at three cameras on the
+    radius-10 sphere; through `Renderer.loop` and the method class,
+    `loop_nodes_compressed` on the `.wg` scene (B6) at bench.py's views.
+    Each listed kernel must have launched, and each image must show
+    points and equal, bit for bit, the frame built from the plain torch
+    versions alone;
+ 6. times: median device frame (CUDA events), points/s, and each kernel
+    beside its plain version, its bound and, where one PyTorch call
+    computes the same function, that call, at the frame's shapes (one
+    orbit chunk; B6 at the parametric frame's).  B8, B9 and B10 are
+    reached by no method of the reference: their launches are 0.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -72,6 +82,22 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                      "pcrhpg24_tpu/render/pallas_hqs.py:185"),
     "pcr_decode_native": ("B5 tbatch decode", "pcrhpg24_tpu_torch/csrc/decode_native.cu",
                           "pcrhpg24_tpu/render/pallas_decode.py:55"),
+    # B6' (pallas_merge.py:278) is the same function: this kernel serves both
+    "pcr_merge_nk1": ("B6/B6' pid-sorted u64-min", "pcrhpg24_tpu_torch/csrc/merge.cu",
+                      "pcrhpg24_tpu/render/pallas_merge.py:362"),
+    "pcr_merge_heads": ("B8 3-key-sorted run heads", "pcrhpg24_tpu_torch/csrc/merge.cu",
+                        "pcrhpg24_tpu/render/pallas_merge.py:137"),
+    "pcr_hqs_sorted": ("B9 pid-sorted HQS sums", "pcrhpg24_tpu_torch/csrc/hqs.cu",
+                       "pcrhpg24_tpu/render/pallas_hqs.py:71"),
+    "pcr_tile_sort3": ("B10 per-tile 3-key sort", "pcrhpg24_tpu_torch/csrc/tile_sort.cu",
+                       "pcrhpg24_tpu/render/pallas_raster.py:101"),
+}
+# cameras of the parametric scene: target (0, 0, 0) on the radius-10 sphere
+# (the app's default radius of 1000 leaves it a few pixels wide)
+PARAM_VIEWS = {
+    "near": dict(yaw=0.4, pitch=-0.3, radius=14.0, target=(0.0, 0.0, 0.0)),
+    "mid": dict(yaw=-1.2, pitch=-0.7, radius=22.0, target=(0.0, 0.0, 0.0)),
+    "far": dict(yaw=2.0, pitch=0.25, radius=35.0, target=(0.0, 0.0, 0.0)),
 }
 # main paths: (label, method, scene version, kernels it must launch)
 MAIN_PATHS = [
@@ -80,9 +106,12 @@ MAIN_PATHS = [
      ("pcr_decode_fixed", "pcr_project", "pcr_u64_min", "pcr_hqs_sums")),
     ("colour v1", "huffman_tpu", 1, ("pcr_decode_native", "pcr_project", "pcr_u64_min")),
 ]
-OWNER = {"pcr_decode_fixed": "colour v2", "pcr_project": "colour v2",
-         "pcr_u64_min": "colour v2", "pcr_hqs_sums": "hqs v2",
-         "pcr_decode_native": "colour v1"}  # the path whose orbit launches are reported
+# the (path, view) whose launches are reported; None: reached by no method
+OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
+         "pcr_u64_min": ("colour v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
+         "pcr_decode_native": ("colour v1", "orbit"),
+         "pcr_merge_nk1": ("parametric", "near"), "pcr_merge_heads": None,
+         "pcr_hqs_sorted": None, "pcr_tile_sort3": None}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -121,28 +150,68 @@ def nbytes(*tensors) -> int:
 
 def build_scenes(base: str, batches: int) -> float:
     """bench.py's generator (bench.py:86-102), written by the port's
-    preprocessor as `<base>_v2.tpc` and `<base>_v1.tpc`; -> seconds."""
+    preprocessor as `<base>_v2.tpc` and `<base>_v1.tpc` and by its Potree
+    builder and `.wg` converter as `<base>.wg`; -> seconds."""
+    import shutil
+
     from pcrhpg24_tpu_torch.formats.las import write_las
+    from pcrhpg24_tpu_torch.formats.potree import build_potree
     from pcrhpg24_tpu_torch.preprocess import preprocess_las_tpc
+    from pcrhpg24_tpu_torch.tools.potree_to_wg import convert
     from pcrhpg24_tpu_torch.utils.synthetic import cloud_to_grid, terrain_cloud
 
     todo = [(v, codec) for v, codec in ((2, "fixed"), (1, "huffman"))
             if not os.path.exists(f"{base}_v{v}.tpc")]
-    if not todo:
+    wg = base + ".wg"
+    if not todo and os.path.exists(wg):
         return 0.0
     t0 = time.perf_counter()
     xyz, rgb = terrain_cloud(batches * 65536, seed=1, extent=2000.0)
-    grid = cloud_to_grid(xyz, scale=(0.001, 0.001, 0.001))
-    del xyz
-    las = base + ".las"
-    write_las(las, grid[:, 0], grid[:, 1], grid[:, 2], rgb)
-    del grid, rgb
-    for v, codec in todo:
-        out = f"{base}_v{v}.tpc"
-        preprocess_las_tpc(las, out + ".tmp", sort=True, verbose=False, codec=codec)
-        os.replace(out + ".tmp", out)
-    os.remove(las)
+    if not os.path.exists(wg):
+        potree = base + "_potree"
+        build_potree(potree, xyz, rgb)
+        convert(potree, wg + ".tmp", precision=0.001)
+        os.replace(wg + ".tmp", wg)
+        shutil.rmtree(potree)
+    if todo:
+        grid = cloud_to_grid(xyz, scale=(0.001, 0.001, 0.001))
+        las = base + ".las"
+        write_las(las, grid[:, 0], grid[:, 1], grid[:, 2], rgb)
+        del grid
+        for v, codec in todo:
+            out = f"{base}_v{v}.tpc"
+            preprocess_las_tpc(las, out + ".tmp", sort=True, verbose=False, codec=codec)
+            os.replace(out + ".tmp", out)
+        os.remove(las)
     return time.perf_counter() - t0
+
+
+def sort_by_key3(pid, dep, pay):
+    """Sort a stream by (pid, depth, payload) as u32: three stable sorts,
+    least significant key first (B8's input, `lax.sort(num_keys=3)`)."""
+    import torch
+
+    from pcrhpg24_tpu_torch.u32 import INT32_MIN
+
+    order = None
+    for k in (pay, dep, pid):
+        k = k.reshape(-1) ^ INT32_MIN  # signed order == u32 order
+        _, idx = torch.sort(k if order is None else k[order], stable=True)
+        order = idx if order is None else order[idx]
+    return tuple(x.reshape(-1)[order] for x in (pid, dep, pay))
+
+
+def same_planes(got, want, what: str) -> int:
+    """Max abs error over paired planes (None pairs with None); raises
+    unless every pair is bit-exact."""
+    err = 0
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), f"{what}: plane present in one only")
+        if g is not None:
+            e = max_abs_err(g.cpu(), w.cpu())
+            check(e == 0, f"{what} (max err {e})")
+            err = max(err, e)
+    return err
 
 
 def view_args(method, renderer, view: dict, lod: float) -> dict:
@@ -172,20 +241,30 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.engine.debug import Debug
     from pcrhpg24_tpu_torch.engine.method import Runtime
     from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
-    from pcrhpg24_tpu_torch.engine.renderer import Renderer
+    from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
     from pcrhpg24_tpu_torch.formats.native_file import decode_tpc_batch_coords, read_tpc_batch
     from pcrhpg24_tpu_torch.kernels import build
     from pcrhpg24_tpu_torch.render.camera import frame_setup_device
     from pcrhpg24_tpu_torch.render.decode_fixed import decode_fixed_batches, decode_fixed_plain
     from pcrhpg24_tpu_torch.render.decode_tbatch import (
         decode_native_batches, decode_native_plain)
-    from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
+    from pcrhpg24_tpu_torch.render.hqs import (
+        hqs_sums, hqs_sums_from_sorted, hqs_sums_plain)
+    from pcrhpg24_tpu_torch.render.merge import (
+        dense_from_sorted, dense_from_sorted_nk1, dense_from_sorted_plain)
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu import (
         CHUNK, HuffmanTpu, frame_streams, render_frame_native)
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import hqs_frame_native
+    from pcrhpg24_tpu_torch.render.methods.loop_las import resolve_indexed
+    from pcrhpg24_tpu_torch.render.methods.loop_nodes_compressed import (
+        ComputeLoopNodesCompressed, WgData, render_wg)
+    from pcrhpg24_tpu_torch.render.methods.parametric import (
+        N_U, N_V, Parametric, render_parametric, surface_points)
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
     from pcrhpg24_tpu_torch.render.raster import (
-        BACKGROUND, swizzle_dims, u64_min_planes, u64_min_planes_plain)
+        BACKGROUND, project_points, resolve, sort_by_pid, swizzle_dims, u64_min_planes,
+        u64_min_planes_plain)
+    from pcrhpg24_tpu_torch.render.tile_sort import TILE, tile_sort3, tile_sort3_plain
     from pcrhpg24_tpu_torch.u32 import INT64_MAX, biased_key, widen
 
     # ---- 1. environment ----
@@ -227,7 +306,14 @@ def main(argv=None) -> int:
               f"{data[v].num_points:,} points, {os.path.getsize(path):,} B on disk; "
               f"loaded in {time.perf_counter() - t0:.1f} s; "
               f"{nbytes(*data[v].dev.values()):,} B resident on the card")
-    print(f"[scene] both generated in {gen_s:.1f} s (0 = cached); allocated "
+    t0 = time.perf_counter()
+    wg = WgData.create(base + ".wg", DEVICE).wait_loaded()
+    torch.cuda.synchronize()
+    print(f"[scene] .wg: {base}.wg {len(wg.records)} nodes, {wg.num_points:,} points, "
+          f"{os.path.getsize(base + '.wg'):,} B on disk; loaded in "
+          f"{time.perf_counter() - t0:.1f} s; {nbytes(*wg.dev.values()):,} B resident "
+          f"on the card")
+    print(f"[scene] all three generated in {gen_s:.1f} s (0 = cached); allocated "
           f"{torch.cuda.memory_allocated():,} B")
 
     # ---- 4. kernel gates ----
@@ -350,6 +436,91 @@ def main(argv=None) -> int:
     del parts, got, want, one, cpu
     Debug.lod = 1.0
 
+    # B6 on the parametric frame's pid-sorted stream, for each camera
+    cut = 1 << 18  # entries of the cut-down input held to the CPU plain version
+    param = Parametric(Renderer(W, H, DEVICE))
+    for name, view in PARAM_VIEWS.items():
+        rp = Renderer(W, H, DEVICE)
+        rp.apply_setting(Setting(**view))
+        rp.controls_update()
+        fx, fy, fz, rgba = surface_points(param.surface, rp.device)
+        pid, depth = project_points(fx, fy, fz, param.transform(rp), W, H)
+        sp = sort_by_pid(pid, depth, rgba)
+        errs["pcr_merge_nk1"] = max(errs["pcr_merge_nk1"], same_planes(
+            dense_from_sorted_nk1(*sp, W * H), u64_min_planes_plain([sp], W * H),
+            f"B6 != plain (parametric {name})"))
+        live = int((sp[0] < W * H).sum())
+        if name == "near":
+            shapes["param"] = sp
+            part = tuple(x[:cut] for x in sp)
+            same_planes(dense_from_sorted_nk1(*part, W * H),
+                        u64_min_planes_plain([tuple(x.cpu() for x in part)], W * H),
+                        "B6 on the card != CPU plain (parametric cut)")
+        print(f"[gate] parametric {name}: B6 bit-exact vs u64_min_planes_plain on the "
+              f"pid-sorted stream ({N_U * N_V:,} entries, {live:,} live)")
+    del fx, fy, fz, rgba, pid, depth, sp
+    print(f"[gate] B6 on the first {cut:,} sorted entries of the parametric near "
+          f"stream equals the plain version run on the CPU")
+
+    # B6 and B8 on the colour orbit chunk's stream, against B3's planes
+    stream = shapes["stream"]
+    b3 = u64_min_planes([stream], size)
+    s1 = sort_by_pid(*stream)
+    errs["pcr_merge_nk1"] = max(errs["pcr_merge_nk1"], same_planes(
+        dense_from_sorted_nk1(*s1, size), b3, "B6 (pid-sorted) != B3 (unsorted)"))
+    same_planes(dense_from_sorted_nk1(*s1, size), u64_min_planes_plain([s1], size),
+                "B6 != plain (orbit chunk)")
+    s3 = sort_by_key3(*stream)
+    shapes["key3"] = s3
+    for need_depth in (True, False):
+        want = (b3[0] if need_depth else None, b3[1])
+        got = dense_from_sorted(*s3, size, need_depth)
+        errs["pcr_merge_heads"] = max(errs["pcr_merge_heads"], same_planes(
+            got, want, f"B8 != B3 (need_depth={need_depth})"))
+        same_planes(got, dense_from_sorted_plain(*s3, size, need_depth),
+                    f"B8 != plain (need_depth={need_depth})")
+        part = tuple(x[:cut] for x in s3)
+        same_planes(dense_from_sorted(*part, size, need_depth),
+                    dense_from_sorted_plain(*(x.cpu() for x in part), size, need_depth),
+                    f"B8 on the card != CPU plain (need_depth={need_depth})")
+    part = tuple(x[:cut] for x in s1)
+    same_planes(dense_from_sorted_nk1(*part, size),
+                u64_min_planes_plain([tuple(x.cpu() for x in part)], size),
+                "B6 on the card != CPU plain (orbit chunk cut)")
+    print(f"[gate] orbit chunk: B6 on the pid-sorted stream and B8 on the 3-key-sorted "
+          f"stream (with and without depth) equal B3's planes and their plain "
+          f"versions ({stream[0].numel():,} entries); the first {cut:,} sorted "
+          f"entries equal the plain versions run on the CPU")
+    del b3, s1, got, want
+
+    # B9 on the HQS orbit chunk's stream sorted by pid, against B4's sums
+    (hpart,), hfb = shapes["hqs"]
+    hs = sort_by_pid(*hpart)
+    shapes["hqs_sorted"] = hs
+    got = hqs_sums_from_sorted(*hs, hfb, size)
+    errs["pcr_hqs_sorted"] = same_planes(got, hqs_sums([hpart], hfb, size),
+                                         "B9 (pid-sorted) != B4 (unsorted)")
+    same_planes(got, hqs_sums_plain([hs], hfb, size), "B9 != plain")
+    part = tuple(x[:cut] for x in hs)
+    same_planes(hqs_sums_from_sorted(*part, hfb, size),
+                hqs_sums_plain([tuple(x.cpu() for x in part)], hfb.cpu(), size),
+                "B9 on the card != CPU plain")
+    print(f"[gate] orbit HQS chunk: B9 on the pid-sorted stream equals B4's sums and "
+          f"hqs_sums_plain ({hs[0].numel():,} entries, {int(widen(got[3]).sum()):,} "
+          f"accepted); its first {cut:,} entries equal the CPU plain version")
+
+    # B10 on the first 4,096 tiles of the HQS chunk's (unsorted) stream
+    tiles = min(4096, hpart[0].numel() // TILE)
+    keys = [x.reshape(-1)[: tiles * TILE].reshape(tiles, 8, 128) for x in hpart]
+    shapes["tiles"] = keys
+    got = tile_sort3(*keys)
+    errs["pcr_tile_sort3"] = same_planes(got, tile_sort3_plain(*keys), "B10 != plain")
+    same_planes([g[:16] for g in got], tile_sort3_plain(*(k[:16].cpu() for k in keys)),
+                "B10 on the card != CPU plain")
+    print(f"[gate] B10 bit-exact vs tile_sort3_plain on {tiles:,} tiles of the HQS "
+          f"orbit chunk's stream; its first 16 tiles equal the CPU plain version")
+    del got, keys, hpart, hs
+
     # ---- 5. main paths through the app ----
     results = {}
     for label, method_name, v, must in MAIN_PATHS:
@@ -398,28 +569,96 @@ def main(argv=None) -> int:
             Runtime.clear()
             torch.cuda.empty_cache()
 
-    # ---- 6. times: kernels at the frame's shapes (one orbit chunk) ----
+    def b6_frame(label, name, rr, launches, img, img_plain, points):
+        """Checks and records the run of a path that must launch B6."""
+        check(launches["pcr_merge_nk1"] > 0,
+              f"pcr_merge_nk1 never launched on the main path ({label}, {name})")
+        check(img is not None and tuple(img.shape) == (H, W), f"no {H}x{W} image")
+        shown = int((img != BACKGROUND).sum())
+        check(shown > 0, f"{label} {name}: the image is all background")
+        e = max_abs_err(img, img_plain)
+        check(e == 0, f"{label} {name}: main-path image != all-plain frame (err {e})")
+        results[(label, name)] = dict(
+            frame_ms=statistics.median(rr.frame_ms[WARMUP:]), visible=points,
+            shown=shown, launches=launches, frames=len(rr.frame_ms[WARMUP:]))
+        print(f"[main] {label} {name}: {shown:,} pixels shown, image bit-exact vs the "
+              f"all-plain frame; launches {{'pcr_merge_nk1': "
+              f"{launches['pcr_merge_nk1']}}}")
+
+    # parametric through the app: the sphere, regenerated every frame
+    for name, view in PARAM_VIEWS.items():
+        argv = ["--scene", "parametric", "--device", DEVICE, "--width", str(W),
+                "--height", str(H), "--yaw", str(view["yaw"]), "--pitch",
+                str(view["pitch"]), "--radius", str(view["radius"]),
+                "--target", *map(str, view["target"]), "--frames", str(WARMUP + FRAMES)]
+        if name == "near":
+            argv += ["--screenshot", os.path.join(REPO, "out", "chip_smoke_parametric.png")]
+        for k in build.KERNELS.values():
+            k.launches = 0
+        rr = app.run(argv)
+        launches = {s: k.launches for s, k in build.KERNELS.items()}
+        method = Runtime.selected
+        _fb_d, fb_p = render_parametric(method.transform(rr), method.surface, W, H,
+                                        plain=True)
+        b6_frame("parametric", name, rr, launches, rr.last_image, resolve(fb_p, W, H),
+                 N_U * N_V)
+        Runtime.clear()
+        del rr, method
+
+    # loop_nodes_compressed on the .wg scene, through Renderer.loop
+    for name, view in VIEWS.items():
+        rw = Renderer(W, H, DEVICE)
+        rw.apply_setting(Setting(**view))
+        m = ComputeLoopNodesCompressed(rw, wg)
+        for k in build.KERNELS.values():
+            k.launches = 0
+        rw.loop(m.update, m.render, frames=WARMUP + FRAMES)
+        launches = {s: k.launches for s, k in build.KERNELS.items()}
+        _fb_d, fb_p = render_wg(**wg.dev, transform=m.transform(rw), width=W, height=H,
+                                plain=True)
+        b6_frame("wg", name, rw, launches, rw.last_image,
+                 resolve_indexed(fb_p, wg.dev["colors"], W, H), wg.num_points)
+        del rw, m
+    wg.unload()
+    torch.cuda.empty_cache()
+
+    # ---- 6. times: kernels at the frame's shapes (one orbit chunk; B6 at the
+    # parametric frame's, B10 at 4,096 tiles of the HQS chunk) ----
     dargs, dpts = shapes["decode"]
     pargs, ppts = shapes["project"]
     stream = shapes["stream"]
     hparts, hfb = shapes["hqs"]
     n = stream[0].numel()
     hn = hparts[0][0].numel()
-    # the one PyTorch call that computes B3's planes: scatter_reduce amin
-    pid64 = widen(stream[0].reshape(-1))
-    idx3 = torch.where(pid64 < size, pid64, torch.full_like(pid64, size))
-    keys = biased_key(stream[1].reshape(-1), stream[2].reshape(-1))
-    plane3 = torch.full((size + 1,), INT64_MAX, dtype=torch.int64, device=DEVICE)
-    # and B4's: index_add of the accepted (r, g, b, 1) rows
-    hp, hd, hy = (x.reshape(-1) for x in hparts[0])
-    q = widen(hp)
-    w = hd.view(torch.float32)
-    old = hfb.view(torch.float32)[torch.clamp(q, max=size - 1)]
-    acc4 = (q < size) & (w <= old * torch.tensor(1.01, dtype=torch.float32, device=DEVICE))
-    idx4 = torch.where(acc4, q, torch.full_like(q, size))
-    y = widen(hy)
-    vals4 = torch.stack([y & 255, (y >> 8) & 255, (y >> 16) & 255,
-                         torch.ones_like(y)], 1).to(torch.int32)
+    sp, s3, hs, tiles = shapes["param"], shapes["key3"], shapes["hqs_sorted"], shapes["tiles"]
+    psize = W * H
+
+    def amin_rows(pid, dep, pay, plane_size):
+        """The one PyTorch call that computes the u64-min planes
+        (scatter_reduce amin): its index, keys and (plane_size + 1,) plane."""
+        pid64 = widen(pid.reshape(-1))
+        idx = torch.where(pid64 < plane_size, pid64, torch.full_like(pid64, plane_size))
+        plane = torch.full((plane_size + 1,), INT64_MAX, dtype=torch.int64, device=DEVICE)
+        return idx, biased_key(dep.reshape(-1), pay.reshape(-1)), plane
+
+    def hqs_rows(pid, dep, pay):
+        """The one PyTorch call that computes the HQS sums (index_add of the
+        accepted (r, g, b, 1) rows into one (size + 1, 4) plane): its rows."""
+        q = widen(pid.reshape(-1))
+        w = dep.reshape(-1).view(torch.float32)
+        old = hfb.view(torch.float32)[torch.clamp(q, max=size - 1)]
+        tol = torch.tensor(1.01, dtype=torch.float32, device=DEVICE)
+        idx = torch.where((q < size) & (w <= old * tol), q, torch.full_like(q, size))
+        y = widen(pay.reshape(-1))
+        vals = torch.stack([y & 255, (y >> 8) & 255, (y >> 16) & 255,
+                            torch.ones_like(y)], 1).to(torch.int32)
+        return idx, vals
+
+    idx3, keys, plane3 = amin_rows(*stream, size)
+    idx6, keys6, plane6 = amin_rows(*sp, psize)
+    idx8, keys8, plane8 = amin_rows(*s3, size)
+    idx4, vals4 = hqs_rows(*hparts[0])
+    idx9, vals9 = hqs_rows(*hs)
     plane4 = torch.zeros((size + 1, 4), dtype=torch.int32, device=DEVICE)
     timed = {
         "pcr_decode_fixed": (lambda: decode_fixed_batches(*dargs, points=dpts),
@@ -434,6 +673,17 @@ def main(argv=None) -> int:
                          lambda: plane4.index_add_(0, idx4, vals4)),
         "pcr_decode_native": (lambda: decode_native_batches(*native_in, points=64),
                               lambda: decode_native_plain(*native_in, points=64), None),
+        "pcr_merge_nk1": (lambda: dense_from_sorted_nk1(*sp, psize),
+                          lambda: u64_min_planes_plain([sp], psize),
+                          lambda: plane6.scatter_reduce_(0, idx6, keys6, reduce="amin")),
+        "pcr_merge_heads": (lambda: dense_from_sorted(*s3, size),
+                            lambda: dense_from_sorted_plain(*s3, size),
+                            lambda: plane8.scatter_reduce_(0, idx8, keys8, reduce="amin")),
+        "pcr_hqs_sorted": (lambda: hqs_sums_from_sorted(*hs, hfb, size),
+                           lambda: hqs_sums_plain([hs], hfb, size),
+                           lambda: plane4.index_add_(0, idx9, vals9)),
+        "pcr_tile_sort3": (lambda: tile_sort3(*tiles), lambda: tile_sort3_plain(*tiles),
+                           None),  # a per-tile 3-key sort is no one PyTorch call
     }
     # least bytes each function must move (inputs read once, outputs
     # written once), at the timed shapes; the decoders read each batch's
@@ -449,6 +699,18 @@ def main(argv=None) -> int:
         "pcr_hqs_sums": nbytes(*hparts[0], hfb) + 16 * size,
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
                               + CHUNK * 64 * 3 * 1024 * 4),
+        "pcr_merge_nk1": nbytes(*sp) + 8 * psize,
+        "pcr_merge_heads": nbytes(*s3) + 8 * size,
+        "pcr_hqs_sorted": nbytes(*hs, hfb) + 16 * size,
+        "pcr_tile_sort3": 2 * nbytes(*tiles),  # each key read once, written once
+    }
+    timed_at = {  # what each kernel is timed on
+        "pcr_merge_nk1": f"the parametric near frame's pid-sorted stream, "
+                         f"{sp[0].numel():,} entries into {psize:,} pixels",
+        "pcr_merge_heads": f"one orbit chunk sorted by 3 keys, {n:,} entries",
+        "pcr_hqs_sorted": f"one orbit HQS chunk sorted by pid, {hn:,} entries",
+        "pcr_tile_sort3": f"{tiles[0].shape[0]:,} tiles of the orbit HQS chunk",
+        "pcr_hqs_sums": f"one orbit HQS chunk, {hn:,} entries",
     }
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
@@ -461,20 +723,25 @@ def main(argv=None) -> int:
         t_bytes = bound_bytes[s] / HBM_BYTES_PER_S * 1e3
         t_ops = bound_ops.get(s, 0) / F32_OPS_PER_S * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+        owner = OWNER[s]
         kernels.append(dict(
             name=KERNEL_INFO[s][0], route="cuda", source=KERNEL_INFO[s][1],
             replaces=KERNEL_INFO[s][2],
-            launches=results[(OWNER[s], "orbit")]["launches"][s],
+            launches=results[owner]["launches"][s] if owner else 0,
             max_abs_err=errs[s], ms=round(k_ms, 4), plain_ms=round(p_ms, 4),
             bound_ms=round(bound_ms, 4), bound_by=bound_by,
             library_ms=None if lib_ms is None else round(lib_ms, 4)))
+        at = timed_at.get(s, f"one orbit chunk, {n:,} entries")
+        reach = (f"{results[owner]['launches'][s]} launches in {owner[0]} {owner[1]}"
+                 if owner else "reached by no method of the reference: 0 launches")
         print(f"[time] {KERNEL_INFO[s][0]}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {bound_bytes[s]:,} B), library "
-              f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} (one orbit chunk, "
-              f"{n if s != 'pcr_hqs_sums' else hn:,} stream entries) [{card}]")
+              f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} ({at}); {reach} [{card}]")
     for (label, name), res in results.items():
+        what = {"parametric": "generated points", "wg": "points"}.get(label,
+                                                                    "visible points")
         print(f"[time] {label} {name}: device frame {res['frame_ms']:.3f} ms median of "
-              f"{res['frames']} (CUDA events), {res['visible']:,} visible points, "
+              f"{res['frames']} (CUDA events), {res['visible']:,} {what}, "
               f"{res['visible'] / res['frame_ms'] / 1e6:.3f} Gpoints/s "
               f"@{W}x{H}, {args.batches} batches [{card}]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,12 +2,13 @@
 
 Counterpart of `pcrhpg24_tpu/app.py` for `.tpc` scenes (v2 fbatch or v1
 tbatch, BC1 colours): the colour frame `huffman_tpu` or the HQS blend
-`huffman_tpu_hqs`, rendered on one device, offscreen, with PNG export
-and a timing report.
+`huffman_tpu_hqs`; and for the procedural `parametric` scene (a
+radius-10 sphere at the origin).  Rendered on one device, offscreen,
+with PNG export and a timing report.
 
 Usage:
-  python -m pcrhpg24_tpu_torch.app --scene out/scene.tpc --method huffman_tpu|huffman_tpu_hqs
-      [--frames 3] [--width 1920 --height 1080]
+  python -m pcrhpg24_tpu_torch.app --scene out/scene.tpc|parametric
+      [--method huffman_tpu|huffman_tpu_hqs] [--frames 3] [--width 1920 --height 1080]
       [--yaw -0.15 --pitch -0.57 --radius 1000 --target x y z]
       [--lod 0.1] [--screenshot out/frame.png] [--stats] [--device cuda]
 """
@@ -30,14 +31,17 @@ def _not_yet(scene_path: str) -> str:
         return "multi-file and .laz scenes (las_sparse) are ROADMAP A11"
     if scene_path.endswith(".las"):
         return ".las scenes (loop_las, basic, compute_2021) are ROADMAP A11"
-    if scene_path == "parametric":
-        return "the parametric scene is ROADMAP A11"
     return "Potree scenes are ROADMAP A10"
 
 
 def build_methods(renderer: Renderer, scene_path: str):
     """Instantiate the loader + method for a scene (main.cpp:244-274)."""
     Runtime.clear()
+    if scene_path == "parametric":
+        from .render.methods.parametric import Parametric
+
+        Runtime.add_method(Parametric(renderer))
+        return Runtime.methods
     if not scene_path.endswith(".tpc"):
         raise NotImplementedError(_not_yet(scene_path))
     from .engine.native_resource import NativeLasData
@@ -55,7 +59,7 @@ def run(argv=None) -> Renderer:
     last image) for callers that inspect the run."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--scene", required=True)
-    ap.add_argument("--method", default="huffman_tpu")
+    ap.add_argument("--method", default=None)
     ap.add_argument("--frames", type=int, default=1)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -76,13 +80,15 @@ def run(argv=None) -> Renderer:
                 target=args.target)
     )
     build_methods(renderer, args.scene)
-    Runtime.set_selected(args.method)
+    if args.method:
+        Runtime.set_selected(args.method)
     method = Runtime.selected
 
     print(f"rendering {args.frames} frame(s) with {method.name} "
           f"on {renderer.device}")
     method.update(renderer)
-    method.las.wait_loaded(renderer)
+    if hasattr(method, "las"):
+        method.las.wait_loaded(renderer)
     renderer.loop(method.update, method.render, frames=args.frames)
 
     if args.screenshot:

@@ -1,4 +1,4 @@
-"""HQS blend sums: kernel B4 and its plain version.
+"""HQS blend sums: kernels B4 and B9 and their plain version.
 
 Counterpart of `pcrhpg24_tpu/render/pallas_hqs.py`.  High-quality
 shading averages, per pixel, the colour of every point whose depth lies
@@ -14,7 +14,11 @@ mod 2**32.  The reference gets the planes from pid-sorted rows through
 one-hot bf16 matmuls (`_hqs_matscatter_kernel`), because the TPU has no
 atomics; the CUDA kernel (`csrc/hqs.cu`) does four `atomicAdd`s per
 accepted entry of the unsorted stream, and integer sums do not depend on
-the order.  Planes are int32 tensors holding u32 bits.
+the order.  `hqs_sums_from_sorted[_multi]` (B9, counterpart of
+`pallas_hqs.hqs_sums_from_sorted[_multi]`, a segmented suffix-sum over
+1024-entry windows on the TPU) take streams sorted by pid: the kernel
+(`csrc/hqs.cu`) sums each run segment of a warp first and does four
+atomics per (warp, pixel).  Planes are int32 tensors holding u32 bits.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..kernels.build import I, L, P, Kernel, check_cuda
 from ..u32 import widen
 
 HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, P, L, I])
+HQS_SORTED = Kernel("pcr_hqs_sorted", [P, P, P, P, P, L, I])
 TOLERANCE = 1.01  # huffman_tpu_hqs.py:153, multiplied in f32
 
 
@@ -51,6 +56,19 @@ def hqs_sums_plain(parts, fb_depth, size: int):
     return tuple(out[k] for k in range(4))
 
 
+def _launch_sums(kernel: Kernel, parts, fb_depth, size: int):
+    """(4, size) planes from one launch of `kernel` per part."""
+    check_cuda("fb_depth", fb_depth, torch.int32, (size,))
+    planes = torch.zeros((4, size), dtype=torch.int32, device=fb_depth.device)
+    for pid, dep, pay in parts:
+        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
+            check_cuda(name, t, torch.int32, pid.shape)
+        if pid.numel():
+            kernel.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
+                          fb_depth.data_ptr(), planes.data_ptr(), pid.numel(), size)
+    return tuple(planes[k] for k in range(4))
+
+
 def hqs_sums(parts, fb_depth, size: int):
     """B4: the planes of `hqs_sums_plain`, one kernel launch per part.
 
@@ -60,13 +78,21 @@ def hqs_sums(parts, fb_depth, size: int):
     """
     if not fb_depth.is_cuda:
         return hqs_sums_plain(parts, fb_depth, size)
-    check_cuda("fb_depth", fb_depth, torch.int32, (size,))
-    planes = torch.zeros((4, size), dtype=torch.int32, device=fb_depth.device)
-    for pid, dep, pay in parts:
-        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
-            check_cuda(name, t, torch.int32, pid.shape)
-        if pid.numel():
-            HQS_SUMS.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
-                            fb_depth.data_ptr(), planes.data_ptr(),
-                            pid.numel(), size)
-    return tuple(planes[k] for k in range(4))
+    return _launch_sums(HQS_SUMS, parts, fb_depth, size)
+
+
+def hqs_sums_from_sorted(spid, sdep, spay, fb_depth, size: int):
+    """B9 on one pid-sorted stream (`pallas_hqs.py:307`)."""
+    return hqs_sums_from_sorted_multi([(spid, sdep, spay)], fb_depth, size)
+
+
+def hqs_sums_from_sorted_multi(parts, fb_depth, size: int):
+    """B9: the planes of `hqs_sums_plain` from independently pid-sorted
+    parts (`pallas_hqs.py:428`), one launch per part.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    An unsorted part still sums exactly, with more atomics.
+    """
+    if not fb_depth.is_cuda:
+        return hqs_sums_plain(parts, fb_depth, size)
+    return _launch_sums(HQS_SORTED, parts, fb_depth, size)

@@ -1,4 +1,5 @@
-"""Swizzled pixel ids, the exact u64-min resolve (kernel B3) and the image.
+"""Swizzled pixel ids, the exact u64-min resolves (B3, and B6 after a
+sort) and the image.
 
 Counterpart of `pcrhpg24_tpu/render/raster.py`.  The reference resolves
 a frame's (pid, depth, payload) stream by sorting it and merging the
@@ -6,8 +7,12 @@ sorted rows (`pallas_merge._merge_matscatter_kernel`), because the TPU
 has no atomics.  Here the CUDA kernel (`csrc/raster.cu`) does one u64
 `atomicMin((depth << 32) | payload)` per live entry into a dense plane
 in the swizzled id space, unsorted; `u64_min_planes_plain` gets the same
-planes from `scatter_reduce("amin")` on biased int64 keys.  Planes and
-images are int32 tensors holding the reference's u32 bits.
+planes from `scatter_reduce("amin")` on biased int64 keys.  The methods
+that resolve a whole frame in linear pixel ids (`parametric`,
+`loop_nodes_compressed`) go through `sorted_resolve_u64_min[_parts]`:
+one sort by pid, then B6 (`merge.dense_from_sorted_nk1_multi`), as the
+reference's TPU path does.  Planes and images are int32 tensors holding
+the reference's u32 bits.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.build import I, L, P, Kernel, check_cuda
-from ..u32 import INT64_MAX, biased_key, split_key, unbias_key
+from ..u32 import INT32_MIN, INT64_MAX, biased_key, split_key, unbias_key
 
 EMPTY = -1  # reference raster.EMPTY (0xFFFFFFFF) as int32 bits
 BACKGROUND = 0x00443322  # resolve.cu:166
@@ -81,6 +86,57 @@ def u64_min_planes(parts, size: int):
             U64_MIN.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
                            plane.data_ptr(), pid.numel(), size)
     return split_key(plane)
+
+
+def project_points(fx, fy, fz, transform, width: int, height: int):
+    """f32 positions -> (linear pid, depth bits), int32 each: the
+    projection of `parametric.py:56-67` and `loop_nodes_compressed.py:
+    117-128`, op for op.  Pids of points off screen are width*height."""
+    t = transform
+    cx = t[0, 0] * fx + t[0, 1] * fy + t[0, 2] * fz + t[0, 3]
+    cy = t[1, 0] * fx + t[1, 1] * fy + t[1, 2] * fz + t[1, 3]
+    w = t[3, 0] * fx + t[3, 1] * fy + t[3, 2] * fz + t[3, 3]
+    ndc_x, ndc_y = cx / w, cy / w
+    ok = (w > 0) & (ndc_x.abs() <= 1) & (ndc_y.abs() <= 1)
+    sx = ((ndc_x * 0.5 + 0.5) * width).to(torch.int32)
+    sy = ((ndc_y * 0.5 + 0.5) * height).to(torch.int32)
+    ok &= (sx >= 0) & (sx < width) & (sy >= 0) & (sy < height)
+    size = width * height
+    pid = torch.where(ok, sx + sy * width, torch.full_like(sx, size))
+    return pid, w.contiguous().view(torch.int32)
+
+
+def sort_by_pid(pid, dep, pay):
+    """One unstable sort by pid as u32 (the reference's
+    `lax.sort(num_keys=1)`), depth and payload following; flattened."""
+    spid, order = torch.sort(pid.reshape(-1) ^ INT32_MIN)  # signed order == u32 order
+    return spid ^ INT32_MIN, dep.reshape(-1)[order], pay.reshape(-1)[order]
+
+
+def sorted_resolve_u64_min_parts(parts, size: int, need_depth: bool = True,
+                                 presorted: bool = False, plain: bool = False):
+    """Whole-frame exact u64-min resolve of every (pid, dep, pay) part
+    -> (fb_d or None, fb_p), (size,) int32 each, EMPTY where nothing
+    landed.  Each part is sorted by pid on its own (unless `presorted`),
+    then B6 min-combines them.  `plain=True` resolves with the plain
+    version on whatever device the tensors are on (the gate B6 is held
+    to)."""
+    from .merge import dense_from_sorted_nk1_multi
+
+    sorted_parts = parts if presorted else [sort_by_pid(*p) for p in parts]
+    if plain:
+        fb_d, fb_p = u64_min_planes_plain(sorted_parts, size)
+        return (fb_d if need_depth else None), fb_p
+    return dense_from_sorted_nk1_multi(sorted_parts, size, need_depth)
+
+
+def sorted_resolve_u64_min(pid, depth, payload, size: int,
+                           need_depth: bool = True, plain: bool = False):
+    """`sorted_resolve_u64_min_parts` of one stream (`raster.py:181-222`):
+    one sort by pid, then B6.  The reference's XLA branch (a 3-key sort
+    and a head scatter) gives the same planes."""
+    return sorted_resolve_u64_min_parts([(pid, depth, payload)], size,
+                                        need_depth, plain=plain)
 
 
 def resolve(fb_payload, width: int, height: int):

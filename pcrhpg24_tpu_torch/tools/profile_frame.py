@@ -1,14 +1,17 @@
 """Where a frame's time goes on the card: a `torch.profiler` breakdown.
 
-Renders a `.tpc` scene through the app's method for a few warm frames,
-then traces `--frames` more with CPU and CUDA activity and prints, per
-frame: the host wall time, the device busy time (union of the kernels'
-and copies' device intervals), the device idle share
-(1 - busy / wall), each device kernel's time and launch count, and the
-peak device memory.  Run on a host with a card:
+Renders a scene through its method for a few warm frames, then traces
+`--frames` more with CPU and CUDA activity and prints, per frame: the
+host wall time, the device busy time (union of the kernels' and copies'
+device intervals), the device idle share (1 - busy / wall), each device
+kernel's time and launch count, and the peak device memory.  Scenes: a
+`.tpc` file or `parametric` through the app's methods, or a `.wg` file
+through `loop_nodes_compressed` (which the app does not register, as
+the reference's does not).  Run on a host with a card:
 
-    python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc \
+    python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc|out/s.wg \
         [--method huffman_tpu|huffman_tpu_hqs] [--view orbit] [--frames 5]
+    python -m pcrhpg24_tpu_torch.tools.profile_frame --scene parametric --view near
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ VIEWS = {
     "orbit": Setting(yaw=0.5, pitch=-0.9, radius=2500.0, target=(1000.0, 1000.0, 100.0)),
     "closeup": Setting(yaw=2.4, pitch=-0.25, radius=180.0, target=(1000.0, 1000.0, 60.0)),
     "oblique": Setting(yaw=-1.1, pitch=-0.08, radius=1400.0, target=(1000.0, 1000.0, 40.0)),
+    # the parametric scene's radius-10 sphere at the origin
+    "near": Setting(yaw=0.4, pitch=-0.3, radius=14.0),
+    "mid": Setting(yaw=-1.2, pitch=-0.7, radius=22.0),
+    "far": Setting(yaw=2.0, pitch=0.25, radius=35.0),
 }
 
 
@@ -42,18 +49,25 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile(scene: str, method: str, view: str, frames: int, width: int,
+def profile(scene: str, method: str | None, view: str, frames: int, width: int,
             height: int, lod: float) -> dict:
     from ..app import build_methods
+    from ..render.methods.loop_nodes_compressed import ComputeLoopNodesCompressed, WgData
 
     Debug.lod = lod
     r = Renderer(width, height, "cuda")
     r.apply_setting(VIEWS[view])
-    build_methods(r, scene)
-    Runtime.set_selected(method)
-    m = Runtime.selected
+    if scene.endswith(".wg"):
+        m = ComputeLoopNodesCompressed(r, WgData.create(scene, "cuda"))
+    else:
+        build_methods(r, scene)
+        if method:
+            Runtime.set_selected(method)
+        m = Runtime.selected
+    resource = getattr(m, "las", None) or getattr(m, "wg", None)
     m.update(r)
-    m.las.wait_loaded(r)
+    if resource is not None:
+        resource.wait_loaded(r)
     r.loop(m.update, m.render, frames=2)  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -73,11 +87,12 @@ def profile(scene: str, method: str, view: str, frames: int, width: int,
         kernels[e.name][0] += (t - s) / 1e3 / frames
         kernels[e.name][1] += 1
     busy = busy_us(intervals) / 1e3 / frames
-    out = dict(wall_ms=wall_ms, busy_ms=busy,
+    out = dict(method=m.name, wall_ms=wall_ms, busy_ms=busy,
                idle_share=1.0 - busy / wall_ms if wall_ms else float("nan"),
                peak_bytes=torch.cuda.max_memory_allocated(),
                kernels={k: (ms, n / frames) for k, (ms, n) in kernels.items()})
-    m.las.unload()
+    if resource is not None:
+        resource.unload()
     Runtime.clear()
     return out
 
@@ -85,7 +100,7 @@ def profile(scene: str, method: str, view: str, frames: int, width: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", required=True)
-    ap.add_argument("--method", default="huffman_tpu")
+    ap.add_argument("--method", default=None, help="default: the scene's first")
     ap.add_argument("--view", default="orbit", choices=sorted(VIEWS))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--width", type=int, default=1920)
@@ -98,7 +113,7 @@ def main(argv=None) -> int:
         return 1
     res = profile(args.scene, args.method, args.view, args.frames, args.width,
                   args.height, args.lod)
-    print(f"[profile] {args.method} {args.view} {args.scene}: wall "
+    print(f"[profile] {res['method']} {args.view} {args.scene}: wall "
           f"{res['wall_ms']:.3f} ms/frame, device busy {res['busy_ms']:.3f} "
           f"ms/frame, idle share {res['idle_share']:.3f}, peak "
           f"{res['peak_bytes']:,} B ({args.frames} frames under the profiler, "

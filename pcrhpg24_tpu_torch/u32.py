@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+INT32_MIN = -(2**31)
 INT64_MIN = -(2**63)
 INT64_MAX = 2**63 - 1
 

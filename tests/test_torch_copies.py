@@ -6,18 +6,27 @@
 * `batch_translations`, `Camera`, `OrbitControls` and the host
   cull/LOD helpers of `render/camera.py` give the reference's values.
 * The copied `.tpc` reader gives the reference's batches.
+* The copied Potree reader (`formats/potree.py`: metadata, hierarchy,
+  node points) and `.wg` reader (`tools/potree_to_wg.read_wg`) give the
+  reference's values on the `.wg` fixture of `tests/test_wg.py`.
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
 
+from pcrhpg24_tpu.formats import potree as ref_potree
 from pcrhpg24_tpu.formats.las import write_las
 from pcrhpg24_tpu.formats.native_file import read_tpc_batch as ref_read_batch
 from pcrhpg24_tpu.formats.native_file import read_tpc_header as ref_read_header
 from pcrhpg24_tpu.preprocess import preprocess_las_tpc as ref_preprocess
 from pcrhpg24_tpu.render import camera as ref_cam
+from pcrhpg24_tpu.tools import potree_to_wg as ref_wg
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 from pcrhpg24_tpu_torch import native
+from pcrhpg24_tpu_torch.formats import potree as port_potree
 from pcrhpg24_tpu_torch.formats.las import write_las as port_write_las
 from pcrhpg24_tpu_torch.formats.native_file import (
     decode_tpc_batch_coords,
@@ -26,6 +35,7 @@ from pcrhpg24_tpu_torch.formats.native_file import (
 )
 from pcrhpg24_tpu_torch.preprocess import preprocess_las_tpc
 from pcrhpg24_tpu_torch.render import camera as port_cam
+from pcrhpg24_tpu_torch.tools import potree_to_wg as port_wg
 from pcrhpg24_tpu_torch.utils.synthetic import cloud_to_grid as port_grid
 from pcrhpg24_tpu_torch.utils.synthetic import terrain_cloud as port_terrain
 
@@ -108,3 +118,53 @@ def test_camera_host_half_equal(yaw, pitch, radius):
             port_cam.lod_points_per_thread(cm.view(), cm.proj(), bmin, bmax, 1920, 1080),
             ref_cam.lod_points_per_thread(cr.view(), cr.proj(), bmin, bmax, 1920, 1080)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def wg_scene(tmp_path_factory):
+    """The reference's Potree directory and `.wg` file of tests/test_wg.py."""
+    d = tmp_path_factory.mktemp("tcopies_wg")
+    xyz, rgb = terrain_cloud(60_000, seed=70, extent=300.0)
+    pd, wg = str(d / "potree"), str(d / "cloud.wg")
+    ref_potree.build_potree(pd, xyz, rgb)
+    ref_wg.convert(pd, wg, precision=0.001)
+    return pd, wg
+
+
+def _assert_fields_equal(mine, theirs, skip=()):
+    for f in dataclasses.fields(theirs):
+        if f.name not in skip:
+            np.testing.assert_array_equal(getattr(mine, f.name),
+                                          getattr(theirs, f.name), err_msg=f.name)
+
+
+def test_potree_reader_equal(wg_scene):
+    pd, _wg = wg_scene
+    meta, ref_meta = port_potree.read_metadata(pd), ref_potree.read_metadata(pd)
+    _assert_fields_equal(meta, ref_meta)
+    nodes = port_potree.parse_hierarchy(pd, meta)
+    ref_nodes = ref_potree.parse_hierarchy(pd, ref_meta)
+    assert len(nodes) == len(ref_nodes) > 3
+    for mine, theirs in zip(nodes, ref_nodes):
+        _assert_fields_equal(mine, theirs, skip=("children",))
+    for i in (0, len(nodes) // 2, len(nodes) - 1):
+        for a, b in zip(port_potree.read_node_points(pd, meta, nodes[i]),
+                        ref_potree.read_node_points(pd, ref_meta, ref_nodes[i])):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert sum(nd.num_points for nd in nodes) == 60_000
+
+
+def test_read_wg_equal(wg_scene):
+    _pd, wg = wg_scene
+    records, words, colors = port_wg.read_wg(wg)
+    ref_records, ref_words, ref_colors = ref_wg.read_wg(wg)
+    assert len(records) == len(ref_records) > 3
+    for mine, theirs in zip(records, ref_records):
+        assert len(mine) == len(theirs) == 6
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(words, ref_words)
+    np.testing.assert_array_equal(colors, ref_colors)
+    assert words.dtype == colors.dtype == np.uint32
+    assert os.path.getsize(wg) == 20 + 48 * len(records) + 4 * (len(words) + len(colors))

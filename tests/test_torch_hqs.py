@@ -1,8 +1,11 @@
-"""Port B4 (HQS blend sums) and the HQS frame vs the JAX reference, on the CPU.
+"""Port B4 and B9 (HQS blend sums) and the HQS frame vs the JAX
+reference, on the CPU.
 
 * `hqs_sums_plain` gives the four (r, g, b, n) planes of the TPU path
   (`pallas_hqs.hqs_sums_from_rows` over pid-sorted rows, interpret
   mode) bit for bit, and of a direct NumPy accumulation.
+* `hqs_sums_from_sorted[_multi]` (B9's plain version) give the planes
+  of `pallas_hqs.hqs_sums_from_sorted[_multi]` in interpret mode.
 * The port's `huffman_tpu_hqs` frame (decode -> uncollapsed projection
   -> B3 depth prepass -> B4 sums -> unswizzle -> unsigned divide) is
   bit-exact against the reference's `hqs_frame_native(use_pallas=False)`
@@ -24,14 +27,23 @@ from pcrhpg24_tpu.render.methods.huffman_tpu_hqs import (
     hqs_blend_native,
     hqs_prepass_native,
 )
-from pcrhpg24_tpu.render.pallas_hqs import hqs_sums_from_rows
+from pcrhpg24_tpu.render.pallas_hqs import (
+    hqs_sums_from_rows,
+    hqs_sums_from_sorted as ref_sums_from_sorted,
+    hqs_sums_from_sorted_multi as ref_sums_from_sorted_multi,
+)
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 from pcrhpg24_tpu_torch import app
 from pcrhpg24_tpu_torch.engine.debug import Debug
 from pcrhpg24_tpu_torch.engine.method import Runtime
 from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
 from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
-from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
+from pcrhpg24_tpu_torch.render.hqs import (
+    hqs_sums,
+    hqs_sums_from_sorted,
+    hqs_sums_from_sorted_multi,
+    hqs_sums_plain,
+)
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import (
     HuffmanTpuHqs,
     hqs_frame_native,
@@ -115,6 +127,49 @@ def test_hqs_sums_plain_equals_numpy_and_wraps():
     r, _g, _b, n = hqs_sums_plain([(p, d, y)], fb, 8)
     assert to_u32(r)[5] == (255 * many) % 2**32
     assert to_u32(n)[5] == many
+
+
+def _sorted_nk1(*arrays):
+    out = jax.lax.sort([jnp.asarray(a) for a in arrays], num_keys=1,
+                       is_stable=False)
+    return tuple(np.asarray(a) for a in out)
+
+
+def test_hqs_sums_from_sorted_equals_reference_kernel():
+    """A whole-window single run, and pixels whose depth plane is EMPTY
+    (a NaN that accepts nothing) though entries land there."""
+    pid, dep, pay, fbd = _hqs_stream(11, rows=1, n=16 * 1024)
+    pid[3000:5048] = 4321  # 2048 entries: whole 1024-entry windows of one run
+    w = dep.view(np.float32)
+    w[3000:5048] = 7 * (1 + np.random.default_rng(1).random(2048).astype(np.float32)
+                        * 0.02)
+    fbd[:] = 0xFFFFFFFF
+    np.minimum.at(fbd, pid[pid < SIZE], dep[pid < SIZE])
+    emptied = np.unique(pid[6000:6100][pid[6000:6100] < SIZE])
+    fbd[emptied] = 0xFFFFFFFF
+    s = _sorted_nk1(pid, dep, pay)
+    want = ref_sums_from_sorted(*map(jnp.asarray, s), jnp.asarray(fbd), SIZE,
+                                interpret=True)
+    got = hqs_sums_from_sorted(*(from_u32(a) for a in s), from_u32(fbd), SIZE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+    n_plane = to_u32(got[3])
+    assert n_plane[4321] > 100 and n_plane[777] > 100
+    assert len(emptied) > 50 and (n_plane[emptied] == 0).all()
+
+
+def test_hqs_sums_from_sorted_multi_equals_reference_kernel():
+    pid, dep, pay, fbd = _hqs_stream(13, rows=1, n=16 * 1024)
+    h = 7 * 1024
+    parts = [_sorted_nk1(pid[:h], dep[:h], pay[:h]),
+             _sorted_nk1(pid[h:], dep[h:], pay[h:])]
+    want = ref_sums_from_sorted_multi(
+        [tuple(map(jnp.asarray, p)) for p in parts], jnp.asarray(fbd), SIZE,
+        interpret=True)
+    got = hqs_sums_from_sorted_multi(
+        [tuple(from_u32(a) for a in p) for p in parts], from_u32(fbd), SIZE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
 
 
 @pytest.fixture(scope="module")

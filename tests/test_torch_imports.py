@@ -114,15 +114,18 @@ def test_cuda_device_raises_without_a_card():
 
 def test_kernel_source_hash_tracks_sources():
     import pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs  # noqa: F401  (all wrappers)
+    import pcrhpg24_tpu_torch.render.merge  # noqa: F401
+    import pcrhpg24_tpu_torch.render.tile_sort  # noqa: F401
 
     srcs = {p.name for p in build.sources()}
     assert {"decode_fixed.cu", "project.cu", "raster.cu", "hqs.cu",
-            "decode_native.cu"} <= srcs
+            "decode_native.cu", "merge.cu", "tile_sort.cu"} <= srcs
     assert len(build.source_hash()) == 16
     assert "-fmad=false" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
     assert set(build.KERNELS) >= {"pcr_decode_fixed", "pcr_project", "pcr_u64_min",
-                                  "pcr_hqs_sums", "pcr_decode_native"}
+                                  "pcr_hqs_sums", "pcr_decode_native", "pcr_merge_nk1",
+                                  "pcr_merge_heads", "pcr_hqs_sorted", "pcr_tile_sort3"}
 
 
 def test_cpu_tensors_never_launch():
@@ -138,9 +141,16 @@ def test_cpu_tensors_never_launch():
 
 @pytest.mark.parametrize("scene,item", [
     ("x.huffman", "A7"), ("x.las", "A11"), ("x.laz", "A11"),
-    ("a.las,b.las", "A11"), ("parametric", "A11"), ("potree_dir", "A10"),
+    ("a.las,b.las", "A11"), ("tiles/*.las", "A11"), ("potree_dir", "A10"),
 ])
 def test_unported_scene_kinds_name_their_roadmap_item(scene, item):
     r = Renderer(64, 32, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         app.build_methods(r, scene)
+
+
+def test_parametric_scene_builds_its_method():
+    r = Renderer(64, 32, device="cpu")
+    methods = app.build_methods(r, "parametric")
+    assert [m.name for m in methods] == ["parametric"]
+    assert not hasattr(methods[0], "las")  # run() waits on no resource
