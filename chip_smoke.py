@@ -25,7 +25,17 @@ Phases, each of which exits non-zero on failure:
     sorted by pid, equal to B4's sums; B10 on the first 4,096 tiles of
     that stream.  Each kernel is also held against its plain version run
     on the CPU on a cut-down input, the path the CPU tests hold to the
-    JAX reference;
+    JAX reference.  Crafted inputs (`tools/crafted.py`) that the terrain
+    may never produce: B2 on 64-batch chunks whose pids repeat
+    non-contiguously along a chain (A B A, A B..B A at gaps 1-40) and
+    across equal chain heads, with sentinels, tied depths and a partial
+    lodn, at points 16, 32, 48 and 64 (the LOD buckets) and 40 (the
+    build that takes the count at run time), steps 6 and 3, colour (with
+    and without the chain-head ladder) and HQS modes; B4 on 4M-entry streams
+    (every entry on one pixel, two pixels alternating, sentinel pids,
+    EMPTY depths, depths at the tolerance and one ulp above it) split
+    into uneven parts, one of them into 70 parts (two launches), and on
+    2**24 + 1 entries of one pixel, whose sums wrap;
  5. main paths at 1920x1080, each view 2 warm + 10 timed frames, with
     every kernel's launch count reset just before and read just after:
     through `pcrhpg24_tpu_torch.app`, `huffman_tpu` on v2 (B1, B2, B3),
@@ -39,8 +49,14 @@ Phases, each of which exits non-zero on failure:
  6. times: median device frame (CUDA events), points/s, and each kernel
     beside its plain version, its bound and, where one PyTorch call
     computes the same function, that call, at the frame's shapes (one
-    orbit chunk; B6 at the parametric frame's).  B8, B9 and B10 are
-    reached by no method of the reference: their launches are 0.
+    orbit chunk; B6 at the parametric frame's); B2 in colour and in HQS
+    mode (two rows); B4's planes handed on as strided views against a
+    contiguous split.  Each kernel's `ms` brackets the wrapper call as
+    the host enqueues it, so a wrapper whose host side outlasts its
+    kernel reads the host's time; its `device_ms` is the same call
+    enqueued behind a ~1 ms device spin, so the events bracket device
+    work alone.  B8, B9 and B10 are reached by no method of the
+    reference: their launches are 0.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -63,6 +79,7 @@ DEVICE = "cuda"
 W, H = 1920, 1080
 WARMUP, FRAMES = 2, 10
 KERNEL_REPS, PLAIN_REPS = 20, 5
+SPIN_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # bench.py:176-183
@@ -76,6 +93,9 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                          "pcrhpg24_tpu/render/pallas_decode_fixed.py:52"),
     "pcr_project": ("B2 fused projection", "pcrhpg24_tpu_torch/csrc/project.cu",
                     "pcrhpg24_tpu/render/pallas_project.py:83"),
+    # the same kernel as HQS launches it (collapse=False): its own row
+    "pcr_project:hqs": ("B2 fused projection, HQS mode", "pcrhpg24_tpu_torch/csrc/project.cu",
+                        "pcrhpg24_tpu/render/pallas_project.py:83"),
     "pcr_u64_min": ("B3 u64-min resolve", "pcrhpg24_tpu_torch/csrc/raster.cu",
                     "pcrhpg24_tpu/render/pallas_merge.py:467"),
     "pcr_hqs_sums": ("B4 HQS blend sums", "pcrhpg24_tpu_torch/csrc/hqs.cu",
@@ -108,6 +128,7 @@ MAIN_PATHS = [
 ]
 # the (path, view) whose launches are reported; None: reached by no method
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
+         "pcr_project:hqs": ("hqs v2", "orbit"),
          "pcr_u64_min": ("colour v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
          "pcr_decode_native": ("colour v1", "orbit"),
          "pcr_merge_nk1": ("parametric", "near"), "pcr_merge_heads": None,
@@ -127,8 +148,14 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device ms of fn() over `reps` calls, after one warm call."""
+def time_ms(fn, reps: int, spin: bool = False) -> float:
+    """Median ms of fn() over `reps` calls, after one warm call.
+
+    The events bracket the call as the host enqueues it.  With `spin`,
+    each call is enqueued behind a ~1 ms device spin, so the card is
+    still busy while the host enqueues the call's work and the events
+    bracket the device time alone.
+    """
     import torch
 
     fn()
@@ -136,6 +163,8 @@ def time_ms(fn, reps: int) -> float:
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -146,6 +175,25 @@ def time_ms(fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def hqs_rows(pid, dep, pay, fb_depth, size: int):
+    """The one PyTorch call that computes B4's sums is `index_add_` of the
+    accepted entries' (r, g, b, 1) rows into a (size + 1, 4) plane, the
+    rest into row `size`: -> (index, rows)."""
+    import torch
+
+    from pcrhpg24_tpu_torch.u32 import widen
+
+    q = widen(pid.reshape(-1))
+    w = dep.reshape(-1).view(torch.float32)
+    old = fb_depth.view(torch.float32)[torch.clamp(q, max=size - 1)]
+    tol = torch.tensor(1.01, dtype=torch.float32, device=q.device)
+    idx = torch.where((q < size) & (w <= old * tol), q, torch.full_like(q, size))
+    y = widen(pay.reshape(-1))
+    vals = torch.stack([y & 255, (y >> 8) & 255, (y >> 16) & 255, torch.ones_like(y)],
+                       1).to(torch.int32)
+    return idx, vals
 
 
 def build_scenes(base: str, batches: int) -> float:
@@ -214,6 +262,21 @@ def same_planes(got, want, what: str) -> int:
     return err
 
 
+def atomic_groups(pid, dep, pay, fb_depth, size: int):
+    """-> (accepted entries, (warp, pixel) groups of B4's tile columns (32
+    points of one chain), groups of flat 32-entry warps): the atomics B4
+    does, against those of a warp over 32 consecutive entries."""
+    import torch
+
+    q, _rows = hqs_rows(pid, dep, pay, fb_depth, size)
+    ok = q < size
+    e = torch.arange(q.numel(), device=q.device)[ok]
+    q = q[ok]
+    tiles = (e // (32 * 1024)) * 1024 + e % 1024  # (32-row band, column)
+    return (int(ok.sum()), torch.unique(tiles * (size + 1) + q).numel(),
+            torch.unique((e // 32) * (size + 1) + q).numel())
+
+
 def view_args(method, renderer, view: dict, lod: float) -> dict:
     from pcrhpg24_tpu_torch.engine.debug import Debug
     from pcrhpg24_tpu_torch.engine.renderer import Setting
@@ -263,9 +326,10 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
     from pcrhpg24_tpu_torch.render.raster import (
         BACKGROUND, project_points, resolve, sort_by_pid, swizzle_dims, u64_min_planes,
-        u64_min_planes_plain)
+        u64_min_planes_plain, unswizzle_plane)
     from pcrhpg24_tpu_torch.render.tile_sort import TILE, tile_sort3, tile_sort3_plain
-    from pcrhpg24_tpu_torch.u32 import INT64_MAX, biased_key, widen
+    from pcrhpg24_tpu_torch.tools import crafted
+    from pcrhpg24_tpu_torch.u32 import INT64_MAX, biased_key, from_u32, widen
 
     # ---- 1. environment ----
     smi = subprocess.run(
@@ -432,9 +496,70 @@ def main(argv=None) -> int:
         check(torch.equal(g.cpu(), p), "B4 on the card != CPU plain")
     print("[gate] orbit: B4 planes of one chunk from the card equal the plain "
           "version run on the CPU")
+    acc_n, tiled, flat = atomic_groups(*parts[0], fb_d, size)
+    print(f"[gate] orbit HQS chunk: {acc_n:,} accepted entries fall into {tiled:,} "
+          f"(warp, pixel) groups of B4's 32-point chain columns ({tiled / acc_n:.3f} "
+          f"atomic sets per entry), {flat:,} over flat 32-entry warps "
+          f"({flat / acc_n:.3f})")
     shapes["hqs"] = ([parts[0]], fb_d)
     del parts, got, want, one, cpu
     Debug.lod = 1.0
+
+    # B2 on crafted chunks: non-contiguous pid repeats along chains and
+    # across chain heads, sentinels, tied depths, a partial lodn; the LOD
+    # buckets have builds of their own, 40 takes the run-time count
+    for pts in (16, 32, 40, 48, 64):
+        ca = crafted.project_inputs(CHUNK, pts, W, H, seed=pts)
+        cargs = [torch.from_numpy(ca["coords"]).to(DEVICE),
+                 from_u32(ca["colors_k"]).to(DEVICE),
+                 *(torch.from_numpy(ca[k]).to(DEVICE)
+                   for k in ("anchors", "tbc", "lodn", "frame")), W, H]
+        modes = [(6, True, True), (6, True, False), (3, True, True), (3, True, False),
+                 (6, False, False)]
+        for steps, collapse, chain in modes:
+            got = project_batches(*cargs, points=pts, steps=steps, chain_collapse=chain,
+                                  collapse=collapse)
+            want = project_plain(*cargs, points=pts, steps=steps, chain_collapse=chain,
+                                 collapse=collapse)
+            torch.cuda.synchronize()
+            for g, p in zip(got, want):
+                e = max_abs_err(g, p)
+                check(e == 0, f"B2 != plain on the crafted chunk (points {pts}, steps "
+                              f"{steps}, collapse={collapse}, chain={chain}, err {e})")
+        raw = want[0]
+        aba = ((raw[:, :-2] == raw[:, 2:]) & (raw[:, :-2] != raw[:, 1:-1])
+               & (widen(raw[:, 2:]) < size))
+        print(f"[gate] crafted chunk, points {pts}: B2 bit-exact vs project_plain at "
+              f"steps 6 and 3, colour with and without the head ladder, and HQS "
+              f"({int(aba.sum()):,} A B A triples along chains, "
+              f"{int((widen(raw) < size).sum()):,} live entries)")
+    del ca, cargs, got, want, raw
+
+    # B4 on crafted streams, split into uneven parts (one into 70: two launches)
+    for kind in crafted.HQS_KINDS:
+        cp, cd, cy, cf = (from_u32(x).to(DEVICE) for x in
+                          crafted.hqs_streams(kind, 4096, size, seed=7))
+        cuts = [0, 1000 * 1024 + 37, 1001 * 1024, 3333 * 1024 + 5, cp.numel()]
+        if kind == "mixed":
+            cuts = np.linspace(0, cp.numel(), 71).astype(int).tolist()
+        cparts = [(cp[a:b], cd[a:b], cy[a:b]) for a, b in zip(cuts, cuts[1:])]
+        got = hqs_sums(cparts, cf, size)
+        want = hqs_sums_plain(cparts, cf, size)
+        same_planes(got, want, f"B4 != plain on crafted {kind} streams")
+        print(f"[gate] crafted HQS stream {kind!r}: B4 bit-exact vs hqs_sums_plain over "
+              f"{len(cparts)} parts ({cp.numel():,} entries, "
+              f"{int(widen(got[3]).sum()):,} accepted)")
+    many = 2**24 + 1  # 255 * many wraps the r plane
+    wrap = (torch.full((many,), 5, dtype=torch.int32, device=DEVICE),
+            torch.full((many,), 0x3F800000, dtype=torch.int32, device=DEVICE),
+            torch.full((many,), 255, dtype=torch.int32, device=DEVICE))
+    wfb = torch.full((8,), 0x3F800000, dtype=torch.int32, device=DEVICE)
+    got = hqs_sums([wrap], wfb, 8)
+    same_planes(got, hqs_sums_plain([wrap], wfb, 8), "B4 != plain on wrapping sums")
+    check(int(widen(got[0])[5]) == 255 * many % 2**32, "B4's r sum did not wrap mod 2**32")
+    print(f"[gate] B4 on {many:,} entries of one pixel: sums wrap mod 2**32 as the "
+          f"plain version's")
+    del cp, cd, cy, cf, cparts, got, want, wrap
 
     # B6 on the parametric frame's pid-sorted stream, for each camera
     cut = 1 << 18  # entries of the cut-down input held to the CPU plain version
@@ -641,30 +766,20 @@ def main(argv=None) -> int:
         plane = torch.full((plane_size + 1,), INT64_MAX, dtype=torch.int64, device=DEVICE)
         return idx, biased_key(dep.reshape(-1), pay.reshape(-1)), plane
 
-    def hqs_rows(pid, dep, pay):
-        """The one PyTorch call that computes the HQS sums (index_add of the
-        accepted (r, g, b, 1) rows into one (size + 1, 4) plane): its rows."""
-        q = widen(pid.reshape(-1))
-        w = dep.reshape(-1).view(torch.float32)
-        old = hfb.view(torch.float32)[torch.clamp(q, max=size - 1)]
-        tol = torch.tensor(1.01, dtype=torch.float32, device=DEVICE)
-        idx = torch.where((q < size) & (w <= old * tol), q, torch.full_like(q, size))
-        y = widen(pay.reshape(-1))
-        vals = torch.stack([y & 255, (y >> 8) & 255, (y >> 16) & 255,
-                            torch.ones_like(y)], 1).to(torch.int32)
-        return idx, vals
-
     idx3, keys, plane3 = amin_rows(*stream, size)
     idx6, keys6, plane6 = amin_rows(*sp, psize)
     idx8, keys8, plane8 = amin_rows(*s3, size)
-    idx4, vals4 = hqs_rows(*hparts[0])
-    idx9, vals9 = hqs_rows(*hs)
+    idx4, vals4 = hqs_rows(*hparts[0], hfb, size)
+    idx9, vals9 = hqs_rows(*hs, hfb, size)
     plane4 = torch.zeros((size + 1, 4), dtype=torch.int32, device=DEVICE)
     timed = {
         "pcr_decode_fixed": (lambda: decode_fixed_batches(*dargs, points=dpts),
                              lambda: decode_fixed_plain(*dargs, points=dpts), None),
         "pcr_project": (lambda: project_batches(*pargs, points=ppts),
                         lambda: project_plain(*pargs, points=ppts), None),
+        "pcr_project:hqs": (lambda: project_batches(*pargs, points=ppts, collapse=False),
+                            lambda: project_plain(*pargs, points=ppts, collapse=False),
+                            None),
         "pcr_u64_min": (lambda: u64_min_planes([stream], size),
                         lambda: u64_min_planes_plain([stream], size),
                         lambda: plane3.scatter_reduce_(0, idx3, keys, reduce="amin")),
@@ -695,6 +810,7 @@ def main(argv=None) -> int:
         "pcr_decode_fixed": (nbytes(*fixed_tables) + stream_bytes[2]
                              + CHUNK * dpts * 3 * 1024 * 4),
         "pcr_project": nbytes(*pargs[:6]) + coords_b,  # 3 u32 outputs per entry
+        "pcr_project:hqs": nbytes(*pargs[:6]) + coords_b,
         "pcr_u64_min": nbytes(*stream) + 8 * size,
         "pcr_hqs_sums": nbytes(*hparts[0], hfb) + 16 * size,
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
@@ -711,32 +827,48 @@ def main(argv=None) -> int:
         "pcr_hqs_sorted": f"one orbit HQS chunk sorted by pid, {hn:,} entries",
         "pcr_tile_sort3": f"{tiles[0].shape[0]:,} tiles of the orbit HQS chunk",
         "pcr_hqs_sums": f"one orbit HQS chunk, {hn:,} entries",
+        "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
     }
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
-    bound_ops = {"pcr_project": 32 * n}
+    bound_ops = {"pcr_project": 32 * n, "pcr_project:hqs": 32 * n}
     kernels = []
     for s, (kern, plain, library) in timed.items():
         k_ms = time_ms(kern, KERNEL_REPS)
+        k_dev = time_ms(kern, KERNEL_REPS, spin=True)
         p_ms = time_ms(plain, PLAIN_REPS)
         lib_ms = time_ms(library, KERNEL_REPS) if library else None
+        lib_dev = time_ms(library, KERNEL_REPS, spin=True) if library else None
         t_bytes = bound_bytes[s] / HBM_BYTES_PER_S * 1e3
         t_ops = bound_ops.get(s, 0) / F32_OPS_PER_S * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
         owner = OWNER[s]
+        sym = s.split(":")[0]  # the row's C symbol
         kernels.append(dict(
             name=KERNEL_INFO[s][0], route="cuda", source=KERNEL_INFO[s][1],
             replaces=KERNEL_INFO[s][2],
-            launches=results[owner]["launches"][s] if owner else 0,
-            max_abs_err=errs[s], ms=round(k_ms, 4), plain_ms=round(p_ms, 4),
-            bound_ms=round(bound_ms, 4), bound_by=bound_by,
+            launches=results[owner]["launches"][sym] if owner else 0,
+            max_abs_err=errs[sym], ms=round(k_ms, 4), device_ms=round(k_dev, 4),
+            plain_ms=round(p_ms, 4), bound_ms=round(bound_ms, 4), bound_by=bound_by,
             library_ms=None if lib_ms is None else round(lib_ms, 4)))
         at = timed_at.get(s, f"one orbit chunk, {n:,} entries")
-        reach = (f"{results[owner]['launches'][s]} launches in {owner[0]} {owner[1]}"
+        reach = (f"{results[owner]['launches'][sym]} launches in {owner[0]} {owner[1]}"
                  if owner else "reached by no method of the reference: 0 launches")
-        print(f"[time] {KERNEL_INFO[s][0]}: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {bound_bytes[s]:,} B), library "
-              f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} ({at}); {reach} [{card}]")
+        lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms (device {lib_dev:.4f})"
+        print(f"[time] {KERNEL_INFO[s][0]}: kernel {k_ms:.4f} ms (device {k_dev:.4f}) vs "
+              f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{bound_bytes[s]:,} B), library {lib} ({at}); {reach} [{card}]")
+    # B4's planes as strided views of its (size, 4) sums (the wrapper's
+    # choice) against a contiguous split, each through the consumer's
+    # unswizzle, as `hqs_frame_native` reads them (device time)
+    split_ms = {
+        how: time_ms(lambda f=f: [unswizzle_plane(f(a), W, H)
+                                  for a in hqs_sums(hparts, hfb, size)], KERNEL_REPS,
+                     spin=True)
+        for how, f in (("views", lambda a: a), ("split", lambda a: a.contiguous()))}
+    print(f"[time] B4 + unswizzle of its four planes (device): strided views "
+          f"{split_ms['views']:.4f} ms, contiguous split {split_ms['split']:.4f} ms "
+          f"(one orbit HQS chunk) [{card}]")
     for (label, name), res in results.items():
         what = {"parametric": "generated points", "wg": "points"}.get(label,
                                                                     "visible points")

@@ -12,9 +12,10 @@ and an accepted entry adds `pay & 255`, `(pay >> 8) & 255`,
 `(pay >> 16) & 255` and 1 into four u32 planes (r, g, b, n), which wrap
 mod 2**32.  The reference gets the planes from pid-sorted rows through
 one-hot bf16 matmuls (`_hqs_matscatter_kernel`), because the TPU has no
-atomics; the CUDA kernel (`csrc/hqs.cu`) does four `atomicAdd`s per
-accepted entry of the unsorted stream, and integer sums do not depend on
-the order.  `hqs_sums_from_sorted[_multi]` (B9, counterpart of
+atomics; the CUDA kernel (`csrc/hqs.cu`) sums the unsorted stream of
+every part in one launch into one interleaved (size, 4) accumulator,
+the lanes of a warp that share a pixel combined before one set of
+`atomicAdd`s, and integer sums do not depend on the order.  `hqs_sums_from_sorted[_multi]` (B9, counterpart of
 `pallas_hqs.hqs_sums_from_sorted[_multi]`, a segmented suffix-sum over
 1024-entry windows on the TPU) take streams sorted by pid: the kernel
 (`csrc/hqs.cu`) sums each run segment of a warp first and does four
@@ -23,12 +24,15 @@ atomics per (warp, pixel).  Planes are int32 tensors holding u32 bits.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..kernels.build import I, L, P, Kernel, check_cuda
 from ..u32 import widen
 
-HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, P, L, I])
+HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, I, P, P, I])
+MAX_PARTS = 64  # parts per B4 launch: their pointers ride in the kernel's parameters
 HQS_SORTED = Kernel("pcr_hqs_sorted", [P, P, P, P, P, L, I])
 TOLERANCE = 1.01  # huffman_tpu_hqs.py:153, multiplied in f32
 
@@ -57,7 +61,7 @@ def hqs_sums_plain(parts, fb_depth, size: int):
 
 
 def _launch_sums(kernel: Kernel, parts, fb_depth, size: int):
-    """(4, size) planes from one launch of `kernel` per part."""
+    """(4, size) planes from one launch of `kernel` (B9) per part."""
     check_cuda("fb_depth", fb_depth, torch.int32, (size,))
     planes = torch.zeros((4, size), dtype=torch.int32, device=fb_depth.device)
     for pid, dep, pay in parts:
@@ -70,15 +74,32 @@ def _launch_sums(kernel: Kernel, parts, fb_depth, size: int):
 
 
 def hqs_sums(parts, fb_depth, size: int):
-    """B4: the planes of `hqs_sums_plain`, one kernel launch per part.
+    """B4: the planes of `hqs_sums_plain`, one kernel launch for up to 64
+    parts.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     Each part's tensors are int32 (u32 bits) of one shape; `fb_depth` is
-    a (size,) int32 plane on the same card.
+    a (size,) int32 plane on the same card.  On the card the planes are
+    strided views (stride 4) of one (size, 4) accumulator.
     """
     if not fb_depth.is_cuda:
         return hqs_sums_plain(parts, fb_depth, size)
-    return _launch_sums(HQS_SUMS, parts, fb_depth, size)
+    check_cuda("fb_depth", fb_depth, torch.int32, (size,))
+    acc = torch.zeros((size, 4), dtype=torch.int32, device=fb_depth.device)
+    live = []
+    for pid, dep, pay in parts:
+        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
+            check_cuda(name, t, torch.int32, pid.shape)
+        if pid.numel():
+            live.append((pid, dep, pay))
+    for start in range(0, len(live), MAX_PARTS):
+        group = live[start:start + MAX_PARTS]
+        ptrs = [(ctypes.c_void_p * len(group))(*(t[k].data_ptr() for t in group))
+                for k in range(3)]
+        counts = (ctypes.c_longlong * len(group))(*(t[0].numel() for t in group))
+        HQS_SUMS.launch(*(ctypes.addressof(a) for a in ptrs), ctypes.addressof(counts),
+                        len(group), fb_depth.data_ptr(), acc.data_ptr(), size)
+    return tuple(acc[:, k] for k in range(4))
 
 
 def hqs_sums_from_sorted(spid, sdep, spay, fb_depth, size: int):

@@ -1,0 +1,151 @@
+"""Crafted inputs for the B2 and B4 gates, made from a seed with numpy.
+
+Real scenes may never produce these patterns; the kernels must still
+give their plain versions' outputs bit for bit.
+
+`project_inputs` builds a chunk for `project_batches` under the exact
+power-of-two frame of `tests/test_pallas_project.py` (w = 2 + z * 2**-19,
+ndc = x * 2**-19 / w).  Each chain walks a few "spots": pixel centres,
+and two spots whose entries clip to the sentinel (off screen, behind the
+camera).  The walks repeat a pid non-contiguously along the chain
+(A B A, A B..B A at gaps 1-40, A B C .. A, a few spots at random,
+sentinels between equal spots) beside plain runs and one-spot chains;
+the chain heads repeat with other heads between them; depths take four
+values, so keys tie and the payload breaks the tie; `lodn` is partial
+(one batch full, one empty).
+
+`hqs_streams` builds a (pid, dep, pay) stream and its depth plane for
+the HQS sums: every entry on one pixel, two pixels alternating along
+rows and columns, half the entries on sentinel pids, pixels whose depth
+plane is EMPTY, depths exactly at the 1 % tolerance and one ulp above
+it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+GROUPS, LANES = 8, 128
+CHAINS = GROUPS * LANES
+POW2 = 2.0 ** -19
+OFF_SCREEN, BEHIND = -1, -2  # spot ids of the two clipping spots
+HQS_KINDS = ("one_pid", "alternating", "sentinel", "empty_depth", "mixed")
+
+
+def pow2_frame(batches: int):
+    """-> (frame (12,) f32, tbc (batches, 4) f32): cx = x * 2**-19,
+    cy = y * 2**-19, w = 2 + z * 2**-19 (tests/test_torch_project.py)."""
+    frame = np.zeros(12, np.float32)
+    frame[0] = frame[4] = frame[8] = POW2  # t00, t11, t32
+    frame[9:12] = 1.0
+    tbc = np.zeros((batches, 4), np.float32)
+    tbc[:, 3] = 2.0
+    return frame, tbc
+
+
+def _chain_walk(kind: int, c: int, points: int, spots: int, rng) -> np.ndarray:
+    """Spot ids of one chain's points."""
+    a, b = rng.choice(spots, 2, replace=False)
+    gap = 1 + (c // 8) % 40
+    if kind == 0:  # A B A (gap 1), A B B A, ... A B*40 A
+        block = [a] + [b] * gap
+    elif kind == 1:  # A, then `gap` other spots, then A again
+        others = [s for s in rng.permutation(spots) if s != a]
+        block = [a] + [others[j % len(others)] for j in range(gap)]
+    elif kind == 2:  # A B A B ... with a sentinel now and then
+        block = [a, b, a, OFF_SCREEN, b]
+    elif kind == 3:  # three spots at random
+        return rng.choice(rng.choice(spots, 3, replace=False), points)
+    elif kind == 4:  # every spot and both sentinels at random
+        return rng.choice(np.r_[np.arange(spots), OFF_SCREEN, BEHIND], points)
+    elif kind == 5:  # contiguous runs of 1-8
+        walk = []
+        while len(walk) < points:
+            walk += [rng.integers(spots)] * int(rng.integers(1, 9))
+        return np.asarray(walk[:points])
+    elif kind == 6:  # sentinels with an A every `gap + 1` points
+        block = [BEHIND] * gap + [a]
+    else:  # one spot all along
+        block = [a]
+    return np.resize(np.asarray(block), points)
+
+
+def project_inputs(batches: int, points: int, width: int, height: int,
+                   seed: int = 0, spots: int = 8) -> dict:
+    """-> numpy arguments of `project_batches` under the pow2 frame:
+    coords (C, points, 3, 8, 128) i32, colors_k (C, 4, 2, 8, 128) u32,
+    anchors (C, 3) i32, tbc (C, 4) f32, lodn (C,) i32, frame (12,) f32."""
+    rng = np.random.default_rng(seed)
+    pix = rng.choice(width * height, spots, replace=False)  # distinct pixels
+    px, py = pix % width, pix // width
+    # pixel centres at w = 2: ndc = x * 2**-20
+    sx = np.rint(((px + 0.5) / width * 2 - 1) * 2**20).astype(np.int64)
+    sy = np.rint(((py + 0.5) / height * 2 - 1) * 2**20).astype(np.int64)
+    walks = np.stack([_chain_walk(c % 8, c, points, spots, rng)
+                      for c in range(batches * CHAINS)])  # (C*1024, points)
+    # chain heads from three spots and a sentinel: equal heads with
+    # other heads between them
+    heads = np.r_[rng.choice(spots, 3, replace=False), OFF_SCREEN]
+    walks[:, 0] = rng.choice(heads, batches * CHAINS)
+    on = walks >= 0
+    idx = np.where(on, walks, 0)
+    x = np.where(on, sx[idx], np.where(walks == OFF_SCREEN, 3 * 2**20, 0))
+    y = np.where(on, sy[idx], 0)
+    z = rng.integers(0, 4, walks.shape) - np.where(walks == BEHIND, 2**21, 0)
+    anchors = rng.integers(0, 2**22, (batches, 3))
+    rel = np.stack([x, y, z], -1).reshape(batches, GROUPS, LANES, points, 3)
+    coords = (rel.transpose(0, 3, 4, 1, 2)
+              + anchors[:, None, :, None, None]).astype(np.int32)
+    lodn = rng.integers(0, points + 1, batches)
+    lodn[0] = points
+    if batches > 1:
+        lodn[1] = 0
+    frame, tbc = pow2_frame(batches)
+    colors_k = rng.integers(0, 2**32, (batches, 4, 2, GROUPS, LANES),
+                            dtype=np.uint64).astype(np.uint32)
+    return dict(coords=np.ascontiguousarray(coords), colors_k=colors_k,
+                anchors=anchors.astype(np.int32), tbc=tbc,
+                lodn=lodn.astype(np.int32), frame=frame)
+
+
+def hqs_streams(kind: str, rows: int, size: int, seed: int = 0):
+    """-> (pid, dep, pay, fb_depth) u32 arrays: a stream of rows x 1024
+    entries of the given kind (`HQS_KINDS`) and its (size,) depth plane,
+    the per-pixel min depth of the live entries, EMPTY elsewhere."""
+    rng = np.random.default_rng(seed)
+    n = rows * CHAINS
+    pixels = rng.choice(size, 64, replace=False)
+    pid = rng.choice(pixels, n)
+    if kind == "one_pid":
+        pid[:] = pixels[0]
+    elif kind == "alternating":  # along the flat order and along columns
+        r, c = np.divmod(np.arange(n), CHAINS)
+        pid = np.where((r + c) % 2 == 0, pixels[0], pixels[1])
+    elif kind in ("sentinel", "mixed"):
+        dead = rng.random(n) < 0.5
+        pid[dead] = rng.choice([size, size + 1, 2**32 - 1], int(dead.sum()))
+    if kind == "mixed":  # whole 32-row bands on one pixel, up to half the rows
+        pid[: min(32, rows // 2) * CHAINS] = pixels[2]
+    pid = pid.astype(np.uint32)
+    live = pid < size
+    # each pixel's depths straddle its 1 % tolerance
+    spix = np.sort(pixels)
+    near = (1 + rng.random(64) * 100).astype(np.float32)
+    w = np.ones(n, np.float32)
+    w[live] = near[np.searchsorted(spix, pid[live])] * (
+        1 + rng.random(int(live.sum())).astype(np.float32) * np.float32(0.02))
+    dep = w.view(np.uint32)
+    pay = rng.integers(0, 2**24, n, dtype=np.uint64).astype(np.uint32)
+    fbd = np.full(size, 0xFFFFFFFF, np.uint32)
+    np.minimum.at(fbd, pid[live], dep[live])
+    if kind in ("empty_depth", "mixed"):  # EMPTY (a NaN) accepts nothing
+        fbd[pixels[1::2]] = 0xFFFFFFFF
+    # depths exactly at the tolerance (accepted) and one ulp above it
+    edge = np.flatnonzero(live & (fbd[np.minimum(pid, size - 1)] != 0xFFFFFFFF))
+    if edge.size:
+        pick = rng.choice(edge, min(edge.size, 2 * 64), replace=False)
+        limit = fbd[pid[pick]].view(np.float32) * np.float32(1.01)
+        half = pick.size // 2
+        dep[pick[:half]] = limit[:half].view(np.uint32)
+        dep[pick[half:]] = np.nextafter(limit[half:], np.float32(np.inf)).view(np.uint32)
+    return pid, dep, pay, fbd

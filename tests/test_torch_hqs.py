@@ -48,6 +48,7 @@ from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import (
     HuffmanTpuHqs,
     hqs_frame_native,
 )
+from pcrhpg24_tpu_torch.tools import crafted
 from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
@@ -127,6 +128,27 @@ def test_hqs_sums_plain_equals_numpy_and_wraps():
     r, _g, _b, n = hqs_sums_plain([(p, d, y)], fb, 8)
     assert to_u32(r)[5] == (255 * many) % 2**32
     assert to_u32(n)[5] == many
+
+
+@pytest.mark.parametrize("kind", crafted.HQS_KINDS)
+def test_hqs_sums_plain_equals_rows_kernel_crafted(kind):
+    """Crafted streams (tools/crafted.py): one pixel for every entry, two
+    pixels alternating, sentinel pids (size, size + 1, 2**32 - 1), EMPTY
+    depths, depths at the tolerance and one ulp above it."""
+    rows, n = 4, 4096
+    pid, dep, pay, fbd = crafted.hqs_streams(kind, rows * n // 1024, SIZE, seed=3)
+    sp, sd, sy = jax.lax.sort(
+        [jnp.asarray(a.reshape(rows, n)) for a in (pid, dep, pay)],
+        num_keys=1, is_stable=False, dimension=1)
+    want = hqs_sums_from_rows(sp, sd, sy, jnp.asarray(fbd), SIZE, interpret=True)
+    got = hqs_sums_plain([tuple(from_u32(a) for a in (pid, dep, pay))],
+                         from_u32(fbd), SIZE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+    counts = to_u32(got[3])
+    assert 0 < counts.sum() < (pid < SIZE).sum()  # some accepted, some not
+    if kind in ("sentinel", "mixed"):
+        assert (pid >= SIZE).any() and (counts > 0).sum() > 1  # sentinels, many pixels
 
 
 def _sorted_nk1(*arrays):

@@ -25,6 +25,7 @@ from pcrhpg24_tpu.render.native_decode_xla import decode_fixed_xla
 from pcrhpg24_tpu.render.pallas_decode_fixed import pack_fixed_batches
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 from pcrhpg24_tpu_torch.render import project as port
+from pcrhpg24_tpu_torch.tools import crafted
 from pcrhpg24_tpu_torch.u32 import from_u32
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
@@ -121,3 +122,39 @@ def test_project_plain_bit_exact(scene, kind, points, lodn, collapse, chain):
         np.testing.assert_array_equal(g.numpy().view(np.uint32), w, err_msg=name)
     size = port.swizzle_dims(W, H)[2]
     assert (np.asarray(want[0]) < size).sum() > 1000  # the view sees points
+
+
+# crafted chunks (pcrhpg24_tpu_torch/tools/crafted.py): pids that repeat
+# non-contiguously along a chain (A B A, A B..B A at gaps 1-40), equal
+# chain heads with other heads between them, sentinels, tied depths and a
+# partial lodn, under the exact pow2 frame
+CRAFTED = [  # (points, steps, collapse, chain_collapse)
+    (16, 6, True, True), (32, 6, True, True), (48, 6, True, True),
+    (64, 6, True, True), (16, 3, True, True), (32, 3, True, True),
+    (48, 3, True, True), (64, 3, True, True), (64, 6, True, False),
+    (48, 3, True, False), (64, 6, False, False), (16, 3, False, False),
+    (40, 6, True, True), (40, 3, True, False),  # no LOD bucket: the run-time count
+]
+
+
+@pytest.mark.parametrize("points,steps,collapse,chain", CRAFTED)
+def test_project_plain_bit_exact_crafted(points, steps, collapse, chain):
+    a = crafted.project_inputs(2, points, W, H, seed=points + steps)
+    args = (a["coords"], a["colors_k"].view(np.int32), a["anchors"], a["tbc"],
+            a["lodn"], a["frame"])
+    got = port.project_batches(*map(torch.from_numpy, args), W, H, points=points,
+                               steps=steps, chain_collapse=chain, collapse=collapse)
+    want = per_op(
+        ref.project_batches, *map(jnp.asarray, args[:1]),
+        jnp.asarray(a["colors_k"]), *map(jnp.asarray, args[2:]), width=W, height=H,
+        points=points, steps=steps, chain_collapse=chain, collapse=collapse,
+        interpret=True)
+    for name, g, w in zip(("pid", "dep", "pay"), got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w),
+                                      err_msg=name)
+    # the raw stream repeats pids non-contiguously along the chains
+    raw = port.project_plain(*map(torch.from_numpy, args), W, H, points=points,
+                             collapse=False)[0].numpy()
+    size = port.swizzle_dims(W, H)[2]
+    aba = (raw[:, :-2] == raw[:, 2:]) & (raw[:, :-2] != raw[:, 1:-1]) & (raw[:, 2:] < size)
+    assert aba.sum() > 100
