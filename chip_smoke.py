@@ -26,7 +26,13 @@ Phases, each of which exits non-zero on failure:
     that stream.  Each kernel is also held against its plain version run
     on the CPU on a cut-down input, the path the CPU tests hold to the
     JAX reference.  Crafted inputs (`tools/crafted.py`) that the terrain
-    may never produce: B2 on 64-batch chunks whose pids repeat
+    may never produce: B1 and B5 on batches encoded by the port's codecs
+    that reach the formats' corners (all-zero chains, 32-bit fields and
+    bucket-32 deltas, 2**24 jumps, 12-bit codes, every fbatch round count
+    0..3 in one group, the widest group streams), against their plain
+    versions and the NumPy mirrors at points 64, 48, 32, 16 and 40, and
+    with every 7th round pointer moved back (the kernels' device-memory
+    fallback) against their plain versions; B2 on 64-batch chunks whose pids repeat
     non-contiguously along a chain (A B A, A B..B A at gaps 1-40) and
     across equal chain heads, with sentinels, tied depths and a partial
     lodn, at points 16, 32, 48 and 64 (the LOD buckets) and 40 (the
@@ -308,9 +314,10 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.formats.native_file import decode_tpc_batch_coords, read_tpc_batch
     from pcrhpg24_tpu_torch.kernels import build
     from pcrhpg24_tpu_torch.render.camera import frame_setup_device
-    from pcrhpg24_tpu_torch.render.decode_fixed import decode_fixed_batches, decode_fixed_plain
+    from pcrhpg24_tpu_torch.render.decode_fixed import (
+        decode_fixed_batches, decode_fixed_plain, pack_fixed_batches)
     from pcrhpg24_tpu_torch.render.decode_tbatch import (
-        decode_native_batches, decode_native_plain)
+        decode_native_batches, decode_native_plain, pack_native_batches)
     from pcrhpg24_tpu_torch.render.hqs import (
         hqs_sums, hqs_sums_from_sorted, hqs_sums_plain)
     from pcrhpg24_tpu_torch.render.merge import (
@@ -416,6 +423,45 @@ def main(argv=None) -> int:
         print(f"[gate] {KERNEL_INFO[sym][0]}: bit-exact vs its plain version "
               f"(64 batches), the plain version on the CPU (4 batches) and the "
               f"NumPy mirror (2 batches) at points 64 and 32")
+    # B1 and B5 on crafted batches that reach the formats' corners
+    for sym, kernel, plain, fbs, pack, keys in (
+            ("pcr_decode_fixed", decode_fixed_batches, decode_fixed_plain,
+             crafted.fixed_batches(seed=1), pack_fixed_batches,
+             ("widths", "streams", "ptrs", "starts")),
+            ("pcr_decode_native", decode_native_batches, decode_native_plain,
+             crafted.native_batches(seed=2), pack_native_batches,
+             ("lj", "streams", "ptrs", "dD", "lut", "starts"))):
+        pk = pack(fbs)
+        cin = [(from_u32(pk[k]) if pk[k].dtype == np.uint32 else torch.from_numpy(pk[k]))
+               .to(DEVICE) for k in keys]
+        mirrors = [decode_tpc_batch_coords(fb).reshape(8, 128, 64, 3) for fb in fbs]
+        for pts in (64, 48, 32, 16, 40):
+            got = kernel(*cin, points=pts)
+            want = plain(*cin, points=pts)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            check(e == 0, f"{sym} != plain on the crafted batches at points={pts} "
+                          f"(max err {e})")
+            for b, mirror in enumerate(mirrors):
+                check(np.array_equal(got[b].permute(2, 3, 0, 1).cpu().numpy(),
+                                     mirror[:, :, :pts]),
+                      f"{sym} != NumPy mirror on crafted batch {b} at points={pts}")
+        # every 7th round pointer moved back 2,000 words: rounds no encoder
+        # writes, which the kernels read from device memory once their
+        # rings have moved past the words
+        back = [x.clone() for x in cin]
+        ptr = back[keys.index("ptrs")].view(-1)
+        ptr[::7] = torch.clamp(ptr[::7] - 2000, min=0)
+        for pts in (64, 48, 32, 16, 40):
+            e = max_abs_err(kernel(*back, points=pts), plain(*back, points=pts))
+            check(e == 0, f"{sym} != plain with moved-back pointers at points={pts} "
+                          f"(max err {e})")
+        words = max(len(s) for fb in fbs for s in fb.streams)
+        print(f"[gate] crafted {KERNEL_INFO[sym][0]}: bit-exact vs its plain version and "
+              f"the NumPy mirror on {len(fbs)} batches at points 64, 48, 32, 16 and 40 "
+              f"(widest group stream {words:,} words), and vs its plain version with "
+              f"every 7th round pointer moved back 2,000 words")
+    del cin, back, got, want
 
     r = Renderer(W, H, DEVICE)
     m = HuffmanTpu(r, data[2])

@@ -122,7 +122,9 @@ def decode_fixed_batches(widths, streams, ptrs, starts, points: int = PTS):
     (B,3,8,128) starts -> (B, points, 3, 8, 128) i32 absolute coords.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
-    `points` < 64 decodes only the LOD prefix of every chain.
+    `points` < 64 decodes only the LOD prefix of every chain.  The
+    kernel stages the stream's 512-byte rows in shared memory with bulk
+    copies, so the stream must start 16-byte aligned.
     """
     if not widths.is_cuda:
         return decode_fixed_plain(widths, streams, ptrs, starts, points)
@@ -133,6 +135,8 @@ def decode_fixed_batches(widths, streams, ptrs, starts, points: int = PTS):
     check_cuda("streams", streams, torch.int32, (B, maxt, G, LANES))
     check_cuda("ptrs", ptrs, torch.int32, (B, 1, PTS))
     check_cuda("starts", starts, torch.int32, (B, 3, G, LANES))
+    if streams.data_ptr() % 16:  # the kernel's bulk copies of 512-byte rows
+        raise ValueError("streams must start 16-byte aligned")
     out = torch.empty((B, points, 3, G, LANES), dtype=torch.int32,
                       device=widths.device)
     if B:

@@ -8,9 +8,10 @@ gives the code length L, a 128-entry LUT maps the symbol index to its
 bucket, `bucket - 1` raw extra bits follow, and each of the two
 consumes ends with a refill round at the host-precomputed pointer
 `ptrs[b, t, g]`.  The CUDA kernel (`csrc/decode_native.cu`) replaces
-`_decode_kernel_impl`; `decode_native_plain` mirrors the XLA decoder op
-for op on int64 words.  Output layout (B, points, 3, 8, 128) int32, as
-B1's, so B2 takes it unchanged.
+`_decode_kernel_impl` and reads L and the bucket from one table lookup
+per symbol (`code_table_plain`); `decode_native_plain` mirrors the XLA
+decoder op for op on int64 words.  Output layout (B, points, 3, 8, 128)
+int32, as B1's, so B2 takes it unchanged.
 """
 
 from __future__ import annotations
@@ -182,13 +183,38 @@ def decode_native_plain(lj, streams, ptrs, dD, lut, starts, points: int = PTS):
     return coords.to(torch.int32)  # wraps mod 2**32, as int32 sums do
 
 
+def code_table_plain(lj, lut):
+    """The (L, bucket) table B5 builds in shared memory for each block.
+
+    lj (B,1,32) i32, lut (B,1,128) i32 -> (B, 4096) i32: entry w is
+    `L | bucket << 4` for the 12-bit window w, by the kernel's ladder on
+    lj's folded dD deltas (lj[16:27], dD[1] at lj[28]): L counts the
+    limits at or below w, the symbol index `(w >> min(12 - L, 12)) + dD[L]`
+    is clipped to [0, 127] and the LUT maps it to its bucket.
+    """
+    B = lj.shape[0]
+    lim = lj[:, 0].to(torch.int64)
+    w = torch.arange(1 << MAXL, dtype=torch.int64, device=lj.device)[None, :]
+    L = torch.ones((B, 1 << MAXL), dtype=torch.int64, device=lj.device)
+    dd = lim[:, 28, None].expand(B, 1 << MAXL)
+    for j in range(1, MAXL):
+        ge = (w >= lim[:, j - 1, None]).to(torch.int64)
+        L = L + ge
+        dd = dd + ge * lim[:, 16 + j - 1, None]
+    sym_idx = torch.clamp((w >> torch.clamp(MAXL - L, max=MAXL)) + dd, 0, 127)
+    bucket = torch.gather(lut.reshape(B, 128).to(torch.int64), 1, sym_idx)
+    return (L | (bucket << 4)).to(torch.int32)
+
+
 def decode_native_batches(lj, streams, ptrs, dD, lut, starts, points: int = PTS):
     """B5: the arguments and output of `decode_native_plain`.
 
     CUDA tensors launch the kernel (which, like the Pallas kernel, reads
     dD's values folded into `lj` and takes `dD` only for signature
-    parity); CPU tensors take the plain version.  `points` < 64 decodes
-    only the LOD prefix of every chain.
+    parity, and looks symbols up in `code_table_plain`'s table); CPU
+    tensors take the plain version.  `points` < 64 decodes only the LOD
+    prefix of every chain.  The kernel stages each stream row in shared
+    memory with bulk copies, so rows must start 16-byte aligned.
     """
     if not streams.is_cuda:
         return decode_native_plain(lj, streams, ptrs, dD, lut, starts, points)
@@ -197,6 +223,8 @@ def decode_native_batches(lj, streams, ptrs, dD, lut, starts, points: int = PTS)
     B, maxw = streams.shape[0], streams.shape[2]
     if maxw < 2 * LANES:
         raise ValueError(f"streams rows must hold >= {2 * LANES} words")
+    if maxw % 4 or streams.data_ptr() % 16:  # the kernel's bulk copies
+        raise ValueError("streams rows must start 16-byte aligned (maxw % 4 == 0)")
     check_cuda("lj", lj, torch.int32, (B, 1, 32))
     check_cuda("streams", streams, torch.int32, (B, G, maxw))
     check_cuda("ptrs", ptrs, torch.int32, (B, ROUNDS, G))

@@ -1,7 +1,22 @@
-"""Crafted inputs for the B2 and B4 gates, made from a seed with numpy.
+"""Crafted inputs for the B1, B2, B4 and B5 gates, made from a seed with
+numpy.
 
 Real scenes may never produce these patterns; the kernels must still
 give their plain versions' outputs bit for bit.
+
+`fixed_batches` and `native_batches` encode clouds with the port's own
+codecs (`codec.fixed`, `codec.native`) that reach the formats' corners.
+Chains are laid out as the codecs cut a batch (chain c = points
+[64c, 64c + 64), group c // 128); each chain's kind follows its lane, so
+every group holds every kind.  fbatch: all-zero chains (widths 0, no
+word a round), chains whose deltas jump by up to 2**31 (32-bit fields,
+3 words a round) and chains of random widths 0..32 per component, so a
+round's ranks cover 0..3 words in one group; and a batch of 32-bit
+fields only, the widest group stream the format has (24,576 words).
+tbatch: bucket sizes drawn from a skewed (geometric) distribution, so
+the canonical code reaches its 12-bit limit; deltas of bucket 32 (31
+extra bits); 2**24 jumps; all-zero chains; and a batch of full-range
+deltas only, about 24.6k words per group stream.
 
 `project_inputs` builds a chunk for `project_batches` under the exact
 power-of-two frame of `tests/test_pallas_project.py` (w = 2 + z * 2**-19,
@@ -106,6 +121,64 @@ def project_inputs(batches: int, points: int, width: int, height: int,
     return dict(coords=np.ascontiguousarray(coords), colors_k=colors_k,
                 anchors=anchors.astype(np.int32), tbc=tbc,
                 lodn=lodn.astype(np.int32), frame=frame)
+
+
+def _batch_coords(deltas: np.ndarray, rng):
+    """(1024, 63, 3) i64 chain deltas -> x, y, z (65536,) i32 whose chains
+    (from random starts, wrapping mod 2**32) have exactly these deltas."""
+    starts = rng.integers(-(2**31), 2**31, (CHAINS, 1, 3))
+    pts = np.concatenate([starts, starts + np.cumsum(deltas, axis=1)], axis=1)
+    pts = ((pts + 2**31) % 2**32 - 2**31).astype(np.int32).reshape(-1, 3)
+    return pts[:, 0], pts[:, 1], pts[:, 2]
+
+
+def _full_range(rng, shape):
+    """Deltas over the whole int32 range, each chain component holding
+    -2**31 (zigzag 2**32 - 1: a 32-bit field, bucket 32) at least once."""
+    d = rng.integers(-(2**31), 2**31, shape)
+    d[:, rng.integers(shape[1])] = -(2**31)
+    return d
+
+
+def fixed_batches(seed: int = 0) -> list:
+    """-> [FixedBatch, FixedBatch]: the fbatch corners (module doc)."""
+    from ..codec.fixed import encode_fixed_batch
+
+    rng = np.random.default_rng(seed)
+    shape = (CHAINS, 63, 3)
+    lane = np.arange(CHAINS) % LANES
+    # random widths 0..32 per chain component; the first delta has all
+    # w bits, so the encoder picks exactly w
+    width = rng.integers(0, 33, (CHAINS, 1, 3))
+    half = np.where(width > 0, 2.0 ** (width - 1), 0).astype(np.int64)
+    d = rng.integers(-half, np.maximum(half, 1), shape)
+    d[:, 0] = -half[:, 0]  # zigzag 2**w - 1
+    d[lane % 8 == 0] = 0
+    d[lane % 8 == 1] = _full_range(rng, shape)[lane % 8 == 1]
+    mixed = encode_fixed_batch(*_batch_coords(d, rng))
+    wide = encode_fixed_batch(*_batch_coords(_full_range(rng, shape), rng))
+    return [mixed, wide]
+
+
+def native_batches(seed: int = 0) -> list:
+    """-> [NativeBatch, NativeBatch]: the tbatch corners (module doc)."""
+    from ..codec.native import encode_native_batch
+
+    rng = np.random.default_rng(seed)
+    shape = (CHAINS, 63, 3)
+    lane = (np.arange(CHAINS) % LANES)[:, None, None]
+    # skewed: bucket b in 1..32 with probability ~2**-b, any value in it
+    bucket = np.minimum(rng.geometric(0.5, shape), 32)
+    zz = (2 ** (bucket - 1) + rng.integers(0, 2 ** (bucket - 1))).astype(np.int64)
+    d = (zz >> 1) ^ -(zz & 1)
+    d = np.where(lane % 8 == 0, 0, d)  # all-zero chains
+    steps = rng.integers(-80, 80, shape) + rng.integers(-(2**24), 2**24, shape) * (
+        rng.random(shape) < 0.05)
+    d = np.where(lane % 8 == 1, steps, d)  # small steps and 2**24 jumps
+    d = np.where(lane % 8 == 2, _full_range(rng, shape), d)  # bucket 32
+    corners = encode_native_batch(*_batch_coords(d, rng))
+    wide = encode_native_batch(*_batch_coords(_full_range(rng, shape), rng))
+    return [corners, wide]
 
 
 def hqs_streams(kind: str, rows: int, size: int, seed: int = 0):

@@ -5,7 +5,12 @@ reference, on the CPU.
   (`pallas_decode.decode_native_batches`, interpret mode) and of the
   NumPy protocol mirror (`codec.native.decode_native_batch`) bit for
   bit, on `tests/test_pallas_decode.py`'s two clouds, at 64 and 32
-  points; the port's `pack_native_batches` equals the reference's.
+  points, and on the crafted corners of `tools/crafted.py` (12-bit
+  codes, bucket 32, 2**24 jumps, all-zero chains, a 24.6k-word group
+  stream) at 64, 40 and 16; the port's `pack_native_batches` equals the
+  reference's.
+* `code_table_plain`, the (L, bucket) table B5 builds per block, gives
+  the ladder's L and bucket for all 4096 windows on those code tables.
 * After `wait_loaded` on a v1 scene, the port's `NativeLasData.dev`
   equals the reference's, plus `colors_k` (B2's colour layout).
 * The v1 colour frame (B5 -> B2 -> B3) is bit-exact against the
@@ -35,6 +40,7 @@ from pcrhpg24_tpu_torch.engine.method import Runtime
 from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
 from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
 from pcrhpg24_tpu_torch.render.decode_tbatch import (
+    code_table_plain,
     decode_native_batches,
     decode_native_plain,
     pack_native_batches,
@@ -42,6 +48,7 @@ from pcrhpg24_tpu_torch.render.decode_tbatch import (
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu import HuffmanTpu, render_frame_native
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import HuffmanTpuHqs, hqs_frame_native
 from pcrhpg24_tpu_torch.render.project import colors_kernel_layout
+from pcrhpg24_tpu_torch.tools import crafted
 from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
@@ -96,21 +103,73 @@ def test_pack_native_batches_equal(clouds):
         np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("points", [64, 32])
-def test_decode_plain_equals_kernel_and_mirror(clouds, points):
-    cl, nbs, packed = clouds
+def _check_decode(nbs, packed, points):
+    """-> the plain decode, held to the Pallas kernel and the NumPy mirror."""
     want = np.asarray(ref_decode(*(jnp.asarray(packed[k]) for k in KEYS),
                                  interpret=True, points=points))
     got = decode_native_batches(*_port_args(packed), points=points).numpy()
     np.testing.assert_array_equal(got, want)
     plain = decode_native_plain(*_port_args(packed), points=points).numpy()
     np.testing.assert_array_equal(plain, got)
-    for b, (nb, (x, _y, _z)) in enumerate(zip(nbs, cl)):
+    for b, nb in enumerate(nbs):
         mirror = decode_native_batch(nb).reshape(8, 128, 64, 3)[:, :, :points]
         np.testing.assert_array_equal(np.transpose(got[b], (2, 3, 0, 1)), mirror)
-        np.testing.assert_array_equal(
-            mirror.reshape(1024, points, 3)[:, :, 0],
-            x.reshape(1024, 64)[:, :points])
+    return got
+
+
+@pytest.mark.parametrize("points", [64, 32])
+def test_decode_plain_equals_kernel_and_mirror(clouds, points):
+    cl, nbs, packed = clouds
+    got = _check_decode(nbs, packed, points)
+    for b, (x, _y, _z) in enumerate(cl):
+        np.testing.assert_array_equal(got[b, :, 0].transpose(1, 2, 0).reshape(1024, points),
+                                      x.reshape(1024, 64)[:, :points])
+
+
+@pytest.fixture(scope="module")
+def crafted_native():
+    nbs = crafted.native_batches(seed=2)
+    return nbs, ref_pack(nbs)
+
+
+def test_crafted_batches_reach_the_corners(crafted_native):
+    (corners, wide), _packed = crafted_native
+    assert corners.code.lengths.max() == 12 and 32 in corners.code.symbols
+    assert 0 in corners.code.symbols
+    assert min(len(s) for s in wide.streams) > 24000
+
+
+@pytest.mark.parametrize("points", [64, 40, 16])
+def test_decode_plain_crafted(crafted_native, points):
+    nbs, packed = crafted_native
+    _check_decode(nbs, packed, points)
+
+
+def _ladder(win12, packed):
+    """(L, bucket) of `decode_native_plain`'s ladder for 12-bit windows
+    win12 (B, n), from the limits, dD and the LUT as it reads them."""
+    limits = torch.from_numpy(packed["lj"][:, 0]).to(torch.int64)
+    dD = torch.from_numpy(packed["dD"][:, 0]).to(torch.int64)
+    lut = torch.from_numpy(packed["lut"][:, 0]).to(torch.int64)
+    L = torch.ones_like(win12)
+    for j in range(1, 12):
+        L = L + (win12 >= limits[:, j - 1, None]).to(torch.int64)
+    code_L = win12 >> torch.clamp(12 - L, max=12)
+    sym_idx = torch.clamp(code_L + torch.gather(dD, 1, L), 0, 127)
+    return L, torch.gather(lut, 1, sym_idx)
+
+
+@pytest.mark.parametrize("which", ["terrain", "crafted"])
+def test_code_table_equals_ladder(clouds, crafted_native, which):
+    packed = clouds[2] if which == "terrain" else crafted_native[1]
+    tab = code_table_plain(torch.from_numpy(packed["lj"]), torch.from_numpy(packed["lut"]))
+    B = packed["lj"].shape[0]
+    assert tab.shape == (B, 4096) and tab.dtype == torch.int32
+    L, bucket = _ladder(torch.arange(4096, dtype=torch.int64).expand(B, 4096), packed)
+    np.testing.assert_array_equal((tab & 15).numpy(), L.numpy())
+    np.testing.assert_array_equal((tab >> 4).numpy(), bucket.numpy())
+    if which == "crafted":
+        assert (L == 12).any()  # the code's 12-bit limit is reached
 
 
 @pytest.fixture(scope="module")
