@@ -16,8 +16,9 @@ Phases, each of which exits non-zero on failure:
  4. kernel gates, each kernel bit-exact against its plain torch version
     on the card: B1 (and the NumPy protocol mirror) and B5 (and its
     NumPy mirror) at points 64 and 32; B2 and B3 for bench.py's three
-    views in colour and HQS modes; B4 on the orbit view's uncollapsed
-    streams of every live chunk; B6 on the parametric frame's pid-sorted
+    views in colour and HQS modes; B3 and B4 on the orbit view's
+    uncollapsed streams of every live chunk, and B3 on its colour
+    streams; B6 on the parametric frame's pid-sorted
     stream for each of its views and on the colour orbit chunk's stream
     sorted by pid, where it must also equal B3's planes; B8 on that
     stream sorted by (pid, depth, payload), equal to B3's planes, with
@@ -41,7 +42,12 @@ Phases, each of which exits non-zero on failure:
     (every entry on one pixel, two pixels alternating, sentinel pids,
     EMPTY depths, depths at the tolerance and one ulp above it) split
     into uneven parts, one of them into 70 parts (two launches), and on
-    2**24 + 1 entries of one pixel, whose sums wrap;
+    2**24 + 1 entries of one pixel, whose sums wrap; B3 on 4M-entry
+    streams (`crafted.resolve_streams`: one pixel, two alternating
+    pixels, depths tied so the payload decides, all-ones keys, sentinel
+    pids, depths falling and rising along the stream, a ragged length),
+    each split into 4 uneven parts and into 70 (two launches), in both
+    part orders, and on 2**24 + 1 entries of one pixel;
  5. main paths at 1920x1080, each view 2 warm + 10 timed frames, with
     every kernel's launch count reset just before and read just after:
     through `pcrhpg24_tpu_torch.app`, `huffman_tpu` on v2 (B1, B2, B3),
@@ -49,20 +55,23 @@ Phases, each of which exits non-zero on failure:
     B2, B3) and `--scene parametric` (B6) at three cameras on the
     radius-10 sphere; through `Renderer.loop` and the method class,
     `loop_nodes_compressed` on the `.wg` scene (B6) at bench.py's views.
-    Each listed kernel must have launched, and each image must show
-    points and equal, bit for bit, the frame built from the plain torch
-    versions alone;
+    Each listed kernel must have launched (B3 exactly once per frame on
+    the three `.tpc` paths), and each image must show points and equal,
+    bit for bit, the frame built from the plain torch versions alone;
  6. times: median device frame (CUDA events), points/s, and each kernel
     beside its plain version, its bound and, where one PyTorch call
     computes the same function, that call, at the frame's shapes (one
     orbit chunk; B6 at the parametric frame's); B2 in colour and in HQS
-    mode (two rows); B4's planes handed on as strided views against a
-    contiguous split.  Each kernel's `ms` brackets the wrapper call as
-    the host enqueues it, so a wrapper whose host side outlasts its
-    kernel reads the host's time; its `device_ms` is the same call
+    mode (two rows); B3 per chunk and over the orbit frame's parts in one
+    call, colour and HQS (three rows); B4's and B3's planes handed on as
+    strided views against a contiguous split, through their consumers.
+    Each kernel's `ms` brackets the wrapper call as the host enqueues
+    it, so a wrapper whose host side outlasts its kernel reads the
+    host's time; its `device_ms` is the same call
     enqueued behind a ~1 ms device spin, so the events bracket device
-    work alone.  B8, B9 and B10 are reached by no method of the
-    reference: their launches are 0.
+    work alone; for B3 and B6 `kernel_device_ms` is one launch of the
+    kernel alone into a plane filled before the spin.  B8, B9 and B10
+    are reached by no method of the reference: their launches are 0.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -104,6 +113,13 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                         "pcrhpg24_tpu/render/pallas_project.py:83"),
     "pcr_u64_min": ("B3 u64-min resolve", "pcrhpg24_tpu_torch/csrc/raster.cu",
                     "pcrhpg24_tpu/render/pallas_merge.py:467"),
+    # the same kernel over all of the orbit frame's parts in one call
+    "pcr_u64_min:frame": ("B3 u64-min resolve, one frame's parts",
+                          "pcrhpg24_tpu_torch/csrc/raster.cu",
+                          "pcrhpg24_tpu/render/pallas_merge.py:467"),
+    "pcr_u64_min:hqs": ("B3 u64-min resolve, one HQS frame's parts (depth prepass)",
+                        "pcrhpg24_tpu_torch/csrc/raster.cu",
+                        "pcrhpg24_tpu/render/pallas_merge.py:467"),
     "pcr_hqs_sums": ("B4 HQS blend sums", "pcrhpg24_tpu_torch/csrc/hqs.cu",
                      "pcrhpg24_tpu/render/pallas_hqs.py:185"),
     "pcr_decode_native": ("B5 tbatch decode", "pcrhpg24_tpu_torch/csrc/decode_native.cu",
@@ -135,7 +151,8 @@ MAIN_PATHS = [
 # the (path, view) whose launches are reported; None: reached by no method
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
          "pcr_project:hqs": ("hqs v2", "orbit"),
-         "pcr_u64_min": ("colour v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
+         "pcr_u64_min": ("colour v2", "orbit"), "pcr_u64_min:frame": ("colour v2", "orbit"),
+         "pcr_u64_min:hqs": ("hqs v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
          "pcr_decode_native": ("colour v1", "orbit"),
          "pcr_merge_nk1": ("parametric", "near"), "pcr_merge_heads": None,
          "pcr_hqs_sorted": None, "pcr_tile_sort3": None}
@@ -154,21 +171,26 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def time_ms(fn, reps: int, spin: bool = False) -> float:
+def time_ms(fn, reps: int, spin: bool = False, setup=None) -> float:
     """Median ms of fn() over `reps` calls, after one warm call.
 
     The events bracket the call as the host enqueues it.  With `spin`,
     each call is enqueued behind a ~1 ms device spin, so the card is
     still busy while the host enqueues the call's work and the events
-    bracket the device time alone.
+    bracket the device time alone.  `setup()` runs before each call,
+    outside the events (and before the spin).
     """
     import torch
 
+    if setup:
+        setup()
     fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if setup:
+            setup()
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
@@ -268,13 +290,14 @@ def same_planes(got, want, what: str) -> int:
     return err
 
 
-def atomic_groups(pid, dep, pay, fb_depth, size: int):
-    """-> (accepted entries, (warp, pixel) groups of B4's tile columns (32
-    points of one chain), groups of flat 32-entry warps): the atomics B4
-    does, against those of a warp over 32 consecutive entries."""
+def atomic_groups(q, size: int):
+    """q: (n,) int64 pixel of each entry of a stream, `size` or more where
+    it lands nothing -> (landing entries, (warp, pixel) groups of B3's and
+    B4's tile columns (32 points of one chain), groups of flat 32-entry
+    warps): the atomics those kernels do, against those of a warp over
+    32 consecutive entries."""
     import torch
 
-    q, _rows = hqs_rows(pid, dep, pay, fb_depth, size)
     ok = q < size
     e = torch.arange(q.numel(), device=q.device)[ok]
     q = q[ok]
@@ -321,7 +344,7 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.render.hqs import (
         hqs_sums, hqs_sums_from_sorted, hqs_sums_plain)
     from pcrhpg24_tpu_torch.render.merge import (
-        dense_from_sorted, dense_from_sorted_nk1, dense_from_sorted_plain)
+        MERGE_NK1, dense_from_sorted, dense_from_sorted_nk1, dense_from_sorted_plain)
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu import (
         CHUNK, HuffmanTpu, frame_streams, render_frame_native)
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import hqs_frame_native
@@ -332,8 +355,8 @@ def main(argv=None) -> int:
         N_U, N_V, Parametric, render_parametric, surface_points)
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
     from pcrhpg24_tpu_torch.render.raster import (
-        BACKGROUND, project_points, resolve, sort_by_pid, swizzle_dims, u64_min_planes,
-        u64_min_planes_plain, unswizzle_plane)
+        BACKGROUND, U64_MIN, project_points, resolve, sort_by_pid, swizzle_dims,
+        u64_min_planes, u64_min_planes_plain, unswizzle_plane)
     from pcrhpg24_tpu_torch.render.tile_sort import TILE, tile_sort3, tile_sort3_plain
     from pcrhpg24_tpu_torch.tools import crafted
     from pcrhpg24_tpu_torch.u32 import INT64_MAX, biased_key, from_u32, widen
@@ -495,17 +518,18 @@ def main(argv=None) -> int:
                     errs["pcr_project"] = max(errs["pcr_project"], e)
                 if collapse:
                     stream = got
-            planes = u64_min_planes([stream], size)
-            plain_planes = u64_min_planes_plain([stream], size)
-            torch.cuda.synchronize()
-            for g, p in zip(planes, plain_planes):
-                e = max_abs_err(g, p)
-                check(e == 0, f"B3 != plain ({name}, lod {lod}, err {e})")
-                errs["pcr_u64_min"] = max(errs["pcr_u64_min"], e)
-            live = int((stream[0] < size).sum())
+                else:
+                    hstream = got
+            for st, mode in ((hstream, "HQS"), (stream, "colour")):
+                planes = u64_min_planes([st], size)
+                errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
+                    planes, u64_min_planes_plain([st], size),
+                    f"B3 != plain ({name}, lod {lod}, {mode} stream)"))
+            live = [int((widen(x[0]) < size).sum()) for x in (stream, hstream)]
             print(f"[gate] {name} lod {lod}: chunk {c}, points {a['points']}: B2 "
                   f"bit-exact vs project_plain (colour + HQS), B3 bit-exact vs "
-                  f"u64_min_planes_plain ({live:,} live entries)")
+                  f"u64_min_planes_plain on the colour and HQS streams ({live[0]:,} and "
+                  f"{live[1]:,} live entries)")
             if name == "orbit" and lod == 1.0:
                 shapes = dict(decode=(fixed_in, a["points"]), project=(pargs, a["points"]),
                               stream=stream)
@@ -520,10 +544,18 @@ def main(argv=None) -> int:
                 print("[gate] orbit: B2 stream and B3 planes from the card equal "
                       "the plain versions run on the CPU")
 
-    # B4 on the orbit view's uncollapsed streams of every live chunk
+    # B3 and B4 on the orbit view's uncollapsed streams of every live
+    # chunk, B3 on its colour streams: the frame's parts, one call each
     a = view_args(m, r, VIEWS["orbit"], 1.0)
     parts, size, _dev = frame_streams(**a, collapse=False)
-    fb_d, _fb_p = u64_min_planes(parts, size)
+    cparts, _size, _dev = frame_streams(**a)
+    for fparts, mode in ((parts, "HQS"), (cparts, "colour")):
+        errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
+            u64_min_planes(fparts, size), u64_min_planes_plain(fparts, size),
+            f"B3 != plain on the orbit frame's {mode} parts"))
+    print(f"[gate] orbit lod 1.0: B3 bit-exact vs u64_min_planes_plain over the frame's "
+          f"{len(cparts)} colour parts and {len(parts)} HQS parts in one call each")
+    fb_d = u64_min_planes(parts, size)[0].contiguous()
     got = hqs_sums(parts, fb_d, size)
     want = hqs_sums_plain(parts, fb_d, size)
     torch.cuda.synchronize()
@@ -542,13 +574,16 @@ def main(argv=None) -> int:
         check(torch.equal(g.cpu(), p), "B4 on the card != CPU plain")
     print("[gate] orbit: B4 planes of one chunk from the card equal the plain "
           "version run on the CPU")
-    acc_n, tiled, flat = atomic_groups(*parts[0], fb_d, size)
-    print(f"[gate] orbit HQS chunk: {acc_n:,} accepted entries fall into {tiled:,} "
-          f"(warp, pixel) groups of B4's 32-point chain columns ({tiled / acc_n:.3f} "
-          f"atomic sets per entry), {flat:,} over flat 32-entry warps "
-          f"({flat / acc_n:.3f})")
+    for what, q in (("B4, HQS chunk: accepted entries", hqs_rows(*parts[0], fb_d, size)[0]),
+                    ("B3, colour chunk: live entries", widen(cparts[0][0].reshape(-1))),
+                    ("B3, HQS chunk: live entries", widen(parts[0][0].reshape(-1)))):
+        n_q, tiled, flat = atomic_groups(q, size)
+        print(f"[gate] orbit {what} {n_q:,} fall into {tiled:,} (warp, pixel) groups "
+              f"of 32-point chain columns ({tiled / n_q:.3f} atomic sets per entry), "
+              f"{flat:,} over flat 32-entry warps ({flat / n_q:.3f})")
     shapes["hqs"] = ([parts[0]], fb_d)
-    del parts, got, want, one, cpu
+    shapes["frame"] = dict(colour=cparts, hqs=parts)
+    del parts, cparts, got, want, one, cpu
     Debug.lod = 1.0
 
     # B2 on crafted chunks: non-contiguous pid repeats along chains and
@@ -606,6 +641,32 @@ def main(argv=None) -> int:
     print(f"[gate] B4 on {many:,} entries of one pixel: sums wrap mod 2**32 as the "
           f"plain version's")
     del cp, cd, cy, cf, cparts, got, want, wrap
+
+    # B3 on crafted streams, in 4 uneven parts and in 70 (two launches),
+    # in both part orders
+    for kind in crafted.RESOLVE_KINDS:
+        cp, cd, cy = (from_u32(x).to(DEVICE) for x in
+                      crafted.resolve_streams(kind, 4096, size, seed=7))
+        for cuts in ([0, 1000 * 1024 + 37, 1001 * 1024, 3333 * 1024 + 5, cp.numel()],
+                     np.linspace(0, cp.numel(), 71).astype(int).tolist()):
+            cparts = [(cp[a:b], cd[a:b], cy[a:b]) for a, b in zip(cuts, cuts[1:])]
+            want = u64_min_planes_plain(cparts, size)
+            for order in (cparts, cparts[::-1]):
+                errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
+                    u64_min_planes(order, size), want,
+                    f"B3 != plain on crafted {kind} streams ({len(cparts)} parts)"))
+        print(f"[gate] crafted resolve stream {kind!r}: B3 bit-exact vs "
+              f"u64_min_planes_plain in 4 and 70 parts, both orders ({cp.numel():,} "
+              f"entries, {int((widen(want[1]) != 0xFFFFFFFF).sum()):,} pixels landed)")
+    one = torch.full((many,), 5, dtype=torch.int32, device=DEVICE)
+    falling = torch.arange(many, 0, -1, dtype=torch.int32, device=DEVICE)
+    part = (one, falling, torch.flip(falling, (0,)))
+    got = u64_min_planes([part], 8)
+    same_planes(got, u64_min_planes_plain([part], 8), f"B3 != plain on {many:,} entries")
+    check(int(got[0][5]) == 1 and int(got[1][5]) == many, "B3's min on one pixel")
+    print(f"[gate] B3 on {many:,} entries of one pixel, depths falling: bit-exact vs "
+          f"u64_min_planes_plain")
+    del cp, cd, cy, cparts, got, want, one, falling, part
 
     # B6 on the parametric frame's pid-sorted stream, for each camera
     cut = 1 << 18  # entries of the cut-down input held to the CPU plain version
@@ -712,6 +773,9 @@ def main(argv=None) -> int:
             for s in must:
                 check(launches[s] > 0, f"{s} never launched on the main path "
                                        f"({label}, {name})")
+            check(launches["pcr_u64_min"] == WARMUP + FRAMES,
+                  f"pcr_u64_min launched {launches['pcr_u64_min']} times in "
+                  f"{WARMUP + FRAMES} frames ({label}, {name}): not once per frame")
             img = rr.last_image
             check(img is not None and tuple(img.shape) == (H, W), f"no {H}x{W} image")
             shown = int((img != BACKGROUND).sum())
@@ -802,6 +866,7 @@ def main(argv=None) -> int:
     n = stream[0].numel()
     hn = hparts[0][0].numel()
     sp, s3, hs, tiles = shapes["param"], shapes["key3"], shapes["hqs_sorted"], shapes["tiles"]
+    fparts = shapes["frame"]
     psize = W * H
 
     def amin_rows(pid, dep, pay, plane_size):
@@ -813,6 +878,9 @@ def main(argv=None) -> int:
         return idx, biased_key(dep.reshape(-1), pay.reshape(-1)), plane
 
     idx3, keys, plane3 = amin_rows(*stream, size)
+    frame_rows = {mode: amin_rows(*(torch.cat([p[k].reshape(-1) for p in fp])
+                                    for k in range(3)), size)
+                  for mode, fp in fparts.items()}
     idx6, keys6, plane6 = amin_rows(*sp, psize)
     idx8, keys8, plane8 = amin_rows(*s3, size)
     idx4, vals4 = hqs_rows(*hparts[0], hfb, size)
@@ -829,6 +897,11 @@ def main(argv=None) -> int:
         "pcr_u64_min": (lambda: u64_min_planes([stream], size),
                         lambda: u64_min_planes_plain([stream], size),
                         lambda: plane3.scatter_reduce_(0, idx3, keys, reduce="amin")),
+        **{f"pcr_u64_min:{row}": (
+            lambda fp=fparts[mode]: u64_min_planes(fp, size),
+            lambda fp=fparts[mode]: u64_min_planes_plain(fp, size),
+            lambda r=frame_rows[mode]: r[2].scatter_reduce_(0, r[0], r[1], reduce="amin"))
+           for row, mode in (("frame", "colour"), ("hqs", "hqs"))},
         "pcr_hqs_sums": (lambda: hqs_sums(hparts, hfb, size),
                          lambda: hqs_sums_plain(hparts, hfb, size),
                          lambda: plane4.index_add_(0, idx4, vals4)),
@@ -858,6 +931,8 @@ def main(argv=None) -> int:
         "pcr_project": nbytes(*pargs[:6]) + coords_b,  # 3 u32 outputs per entry
         "pcr_project:hqs": nbytes(*pargs[:6]) + coords_b,
         "pcr_u64_min": nbytes(*stream) + 8 * size,
+        "pcr_u64_min:frame": sum(nbytes(*p) for p in fparts["colour"]) + 8 * size,
+        "pcr_u64_min:hqs": sum(nbytes(*p) for p in fparts["hqs"]) + 8 * size,
         "pcr_hqs_sums": nbytes(*hparts[0], hfb) + 16 * size,
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
                               + CHUNK * 64 * 3 * 1024 * 4),
@@ -874,6 +949,24 @@ def main(argv=None) -> int:
         "pcr_tile_sort3": f"{tiles[0].shape[0]:,} tiles of the orbit HQS chunk",
         "pcr_hqs_sums": f"one orbit HQS chunk, {hn:,} entries",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
+        **{f"pcr_u64_min:{row}": f"the orbit frame's {len(fparts[mode])} {mode} parts, "
+                                 f"{sum(p[0].numel() for p in fparts[mode]):,} entries"
+           for row, mode in (("frame", "colour"), ("hqs", "hqs"))},
+    }
+
+    def b3_alone(parts):
+        return lambda: [U64_MIN.launch(*g, plane_alone.data_ptr(), size)
+                        for g in build.part_groups(parts)]
+
+    # one launch of the kernel alone into a plane filled outside the events
+    plane_alone = torch.empty((max(size, psize),), dtype=torch.int64, device=DEVICE)
+    alone = {
+        "pcr_u64_min": b3_alone([stream]),
+        "pcr_u64_min:frame": b3_alone(fparts["colour"]),
+        "pcr_u64_min:hqs": b3_alone(fparts["hqs"]),
+        "pcr_merge_nk1": lambda: MERGE_NK1.launch(
+            sp[0].data_ptr(), sp[1].data_ptr(), sp[2].data_ptr(), plane_alone.data_ptr(),
+            sp[0].numel(), psize),
     }
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
@@ -885,6 +978,8 @@ def main(argv=None) -> int:
         p_ms = time_ms(plain, PLAIN_REPS)
         lib_ms = time_ms(library, KERNEL_REPS) if library else None
         lib_dev = time_ms(library, KERNEL_REPS, spin=True) if library else None
+        k_alone = (time_ms(alone[s], KERNEL_REPS, spin=True,
+                           setup=lambda: plane_alone.fill_(-1)) if s in alone else None)
         t_bytes = bound_bytes[s] / HBM_BYTES_PER_S * 1e3
         t_ops = bound_ops.get(s, 0) / F32_OPS_PER_S * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
@@ -895,13 +990,16 @@ def main(argv=None) -> int:
             replaces=KERNEL_INFO[s][2],
             launches=results[owner]["launches"][sym] if owner else 0,
             max_abs_err=errs[sym], ms=round(k_ms, 4), device_ms=round(k_dev, 4),
+            kernel_device_ms=None if k_alone is None else round(k_alone, 4),
             plain_ms=round(p_ms, 4), bound_ms=round(bound_ms, 4), bound_by=bound_by,
             library_ms=None if lib_ms is None else round(lib_ms, 4)))
         at = timed_at.get(s, f"one orbit chunk, {n:,} entries")
         reach = (f"{results[owner]['launches'][sym]} launches in {owner[0]} {owner[1]}"
                  if owner else "reached by no method of the reference: 0 launches")
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms (device {lib_dev:.4f})"
-        print(f"[time] {KERNEL_INFO[s][0]}: kernel {k_ms:.4f} ms (device {k_dev:.4f}) vs "
+        kern_alone = "" if k_alone is None else f", kernel alone {k_alone:.4f}"
+        print(f"[time] {KERNEL_INFO[s][0]}: kernel {k_ms:.4f} ms (device {k_dev:.4f}"
+              f"{kern_alone}) vs "
               f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{bound_bytes[s]:,} B), library {lib} ({at}); {reach} [{card}]")
     # B4's planes as strided views of its (size, 4) sums (the wrapper's
@@ -915,6 +1013,20 @@ def main(argv=None) -> int:
     print(f"[time] B4 + unswizzle of its four planes (device): strided views "
           f"{split_ms['views']:.4f} ms, contiguous split {split_ms['split']:.4f} ms "
           f"(one orbit HQS chunk) [{card}]")
+    # B3's planes as strided views of its u64 plane (the wrapper's choice)
+    # against a contiguous split, through each frame's consumers: the
+    # colour frame unswizzles the payload; HQS hands B4 a contiguous depth
+    # plane and unswizzles it
+    consumers = {"colour": lambda pl: unswizzle_plane(pl[1], W, H),
+                 "hqs": lambda pl: unswizzle_plane(pl[0].contiguous(), W, H)}
+    for mode, use in consumers.items():
+        split_ms = {
+            how: time_ms(lambda f=f: use([f(x) for x in u64_min_planes(fparts[mode], size)]),
+                         KERNEL_REPS, spin=True)
+            for how, f in (("views", lambda x: x), ("split", lambda x: x.contiguous()))}
+        print(f"[time] B3 + its {mode} consumer (device): strided views "
+              f"{split_ms['views']:.4f} ms, contiguous split {split_ms['split']:.4f} ms "
+              f"(the orbit frame's {len(fparts[mode])} parts) [{card}]")
     for (label, name), res in results.items():
         what = {"parametric": "generated points", "wg": "points"}.get(label,
                                                                     "visible points")

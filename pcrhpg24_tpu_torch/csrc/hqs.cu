@@ -60,31 +60,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxParts = 64;     // parts per B4 launch (kernel parameters)
+using tiles::kCols;
+using tiles::kFull;
+using tiles::kPitch;
+using tiles::kTileWords;
+using tiles::Parts;
 constexpr int kWarps = 8;         // B4 warps per block, one tile each
-constexpr int kRow = 1024;        // entries per stream row (8 groups x 128)
-constexpr int kCols = 16;         // tile: 32 rows x 16 columns
-constexpr int kPitch = kCols + 1; // tile row pitch: conflict-free columns
-constexpr int kTileWords = 32 * kPitch;
 constexpr int kSmemBytes = kWarps * 3 * kTileWords * 4;  // 52,224 B
-
-struct Parts {
-  const uint32_t* pid[kMaxParts];
-  const uint32_t* dep[kMaxParts];
-  const uint32_t* pay[kMaxParts];
-  long long n[kMaxParts];
-  int tile0[kMaxParts + 1];  // first tile of each part; tile0[count] = all
-  int count;
-};
-
-// 32-row bands x 16-column blocks of a part's rows of kRow entries
-__host__ __device__ inline int part_tiles(long long n) {
-  const long long rows = (n + kRow - 1) / kRow;
-  return static_cast<int>((rows + 31) / 32) * (kRow / kCols);
-}
 
 __global__ void __launch_bounds__(kWarps * 32, 4)
 hqs_sums_kernel(const __grid_constant__ Parts parts,
@@ -96,29 +82,10 @@ hqs_sums_kernel(const __grid_constant__ Parts parts,
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWarps + warp;
   if (t >= parts.tile0[parts.count]) return;  // the whole warp; no barrier
-  int p = 0;
-  while (t >= parts.tile0[p + 1]) ++p;
-  const int local = t - parts.tile0[p];
-  const long long n = parts.n[p];
-  const long long base = static_cast<long long>(local / (kRow / kCols)) * 32 * kRow +
-                         (local % (kRow / kCols)) * kCols + (lane & (kCols - 1));
   uint32_t* sp = tile + warp * 3 * kTileWords;
   uint32_t* sd = sp + kTileWords;
   uint32_t* sy = sd + kTileWords;
-  const uint32_t* gp = parts.pid[p];
-  const uint32_t* gd = parts.dep[p];
-  const uint32_t* gy = parts.pay[p];
-#pragma unroll 8
-  for (int r2 = 0; r2 < 16; ++r2) {  // two tile rows a step, 64 B each
-    const int r = 2 * r2 + (lane >> 4);
-    const long long e = base + static_cast<long long>(r) * kRow;
-    const bool in = e < n;
-    const int at = r * kPitch + (lane & (kCols - 1));
-    sp[at] = in ? __ldcs(gp + e) : kFull;  // kFull >= size: dead
-    sd[at] = in ? __ldcs(gd + e) : 0u;
-    sy[at] = in ? __ldcs(gy + e) : 0u;
-  }
-  __syncwarp();
+  tiles::load_tile(parts, t, lane, sp, sd, sy);
   // lane l holds point l of the band in each of the tile's 16 chains
   uint32_t q[kCols], old[kCols];
 #pragma unroll
@@ -198,17 +165,9 @@ extern "C" int pcr_hqs_sums(const void* const* pid, const void* const* dep,
                             const void* const* pay, const long long* n,
                             int count, const void* fb_depth, void* acc,
                             int size, void* stream) {
-  if (count < 1 || count > kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
   Parts parts;
-  parts.count = count;
-  parts.tile0[0] = 0;
-  for (int p = 0; p < count; ++p) {
-    parts.pid[p] = static_cast<const uint32_t*>(pid[p]);
-    parts.dep[p] = static_cast<const uint32_t*>(dep[p]);
-    parts.pay[p] = static_cast<const uint32_t*>(pay[p]);
-    parts.n[p] = n[p];
-    parts.tile0[p + 1] = parts.tile0[p] + part_tiles(n[p]);
-  }
+  if (!tiles::make_parts(parts, pid, dep, pay, n, count))
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(

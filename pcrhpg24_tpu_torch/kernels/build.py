@@ -152,6 +152,10 @@ class Kernel:
 # every kernel wrapper of the package, by C symbol
 KERNELS: dict[str, Kernel] = {}
 
+# parts per launch of B3 and B4: their pointers ride in the kernel's
+# parameters (`csrc/tiles.cuh`)
+MAX_PARTS = 64
+
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and shape)."""
@@ -164,3 +168,23 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def part_groups(parts):
+    """Check every (pid, dep, pay) part (int32 CUDA tensors of one shape
+    each) and yield, for each group of up to MAX_PARTS non-empty parts,
+    the leading arguments of one launch over them: the addresses of the
+    three host arrays of the parts' device pointers and of their entry
+    counts, then the count.  The arrays live until the next yield."""
+    live = []
+    for pid, dep, pay in parts:
+        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
+            check_cuda(name, t, torch.int32, pid.shape)
+        if pid.numel():
+            live.append((pid, dep, pay))
+    for start in range(0, len(live), MAX_PARTS):
+        group = live[start:start + MAX_PARTS]
+        ptrs = [(ctypes.c_void_p * len(group))(*(t[k].data_ptr() for t in group))
+                for k in range(3)]
+        counts = (ctypes.c_longlong * len(group))(*(t[0].numel() for t in group))
+        yield (*(ctypes.addressof(a) for a in ptrs), ctypes.addressof(counts), len(group))

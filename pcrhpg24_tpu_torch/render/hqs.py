@@ -24,15 +24,12 @@ atomics per (warp, pixel).  Planes are int32 tensors holding u32 bits.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..kernels.build import I, L, P, Kernel, check_cuda
+from ..kernels.build import I, L, P, Kernel, check_cuda, part_groups
 from ..u32 import widen
 
 HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, I, P, P, I])
-MAX_PARTS = 64  # parts per B4 launch: their pointers ride in the kernel's parameters
 HQS_SORTED = Kernel("pcr_hqs_sorted", [P, P, P, P, P, L, I])
 TOLERANCE = 1.01  # huffman_tpu_hqs.py:153, multiplied in f32
 
@@ -86,19 +83,8 @@ def hqs_sums(parts, fb_depth, size: int):
         return hqs_sums_plain(parts, fb_depth, size)
     check_cuda("fb_depth", fb_depth, torch.int32, (size,))
     acc = torch.zeros((size, 4), dtype=torch.int32, device=fb_depth.device)
-    live = []
-    for pid, dep, pay in parts:
-        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
-            check_cuda(name, t, torch.int32, pid.shape)
-        if pid.numel():
-            live.append((pid, dep, pay))
-    for start in range(0, len(live), MAX_PARTS):
-        group = live[start:start + MAX_PARTS]
-        ptrs = [(ctypes.c_void_p * len(group))(*(t[k].data_ptr() for t in group))
-                for k in range(3)]
-        counts = (ctypes.c_longlong * len(group))(*(t[0].numel() for t in group))
-        HQS_SUMS.launch(*(ctypes.addressof(a) for a in ptrs), ctypes.addressof(counts),
-                        len(group), fb_depth.data_ptr(), acc.data_ptr(), size)
+    for group in part_groups(parts):
+        HQS_SUMS.launch(*group, fb_depth.data_ptr(), acc.data_ptr(), size)
     return tuple(acc[:, k] for k in range(4))
 
 

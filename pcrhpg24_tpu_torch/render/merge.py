@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.build import I, L, P, Kernel, check_cuda
-from ..u32 import split_key, widen
+from ..u32 import key_views, widen
 from .raster import EMPTY, u64_min_planes_plain
 
 MERGE_NK1 = Kernel("pcr_merge_nk1", [P, P, P, P, L, I])
@@ -45,7 +45,8 @@ def dense_from_sorted_nk1_multi(parts, size: int, need_depth: bool = True,
     `ilp` is the reference's choice between two TPU kernels of one
     function (how many windows a loop body interleaves); it changes
     nothing here.  CUDA tensors launch the kernel; CPU tensors take the
-    plain version.  fb_d is None when `need_depth` is False.
+    plain version.  fb_d is None when `need_depth` is False.  On the card
+    the planes are strided views (stride 2) of the u64 plane, as B3's.
     """
     del ilp
     if not parts[0][0].is_cuda:
@@ -58,7 +59,7 @@ def dense_from_sorted_nk1_multi(parts, size: int, need_depth: bool = True,
         if pid.numel():
             MERGE_NK1.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
                              plane.data_ptr(), pid.numel(), size)
-    fb_d, fb_p = split_key(plane)
+    fb_d, fb_p = key_views(plane)
     return (fb_d if need_depth else None), fb_p
 
 

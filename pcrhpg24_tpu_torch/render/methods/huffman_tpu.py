@@ -4,8 +4,8 @@ Counterpart of `pcrhpg24_tpu/render/methods/huffman_tpu.py`: per frame,
 device frustum cull + LOD, then for each live 64-batch chunk the
 geometry decode — fbatch (v2, B1) or tbatch (v1, B5) — and the fused
 projection + BC1 + run collapse (B2), then the exact u64-min resolve
-(B3) over every chunk's stream, the plane split, the unswizzle and the
-background fill.
+(B3) over every chunk's stream in one launch, the unswizzle of the
+payload half and the background fill.
 
 There is no sort: the reference's per-chunk `lax.sort` and its
 matscatter merge exist only because the TPU has no atomics

@@ -39,6 +39,7 @@ def hqs_frame_native(dev, frame_params, tb, scale, width: int, height: int,
         planes, sums = ((u64_min_planes_plain, hqs_sums_plain) if plain
                         else (u64_min_planes, hqs_sums))
         fb_d, _fb_p = planes(parts, size)
+        fb_d = fb_d.contiguous()  # B4 reads a contiguous plane; B3 hands on a view
         acc = sums(parts, fb_d, size)
     else:
         fb_d = torch.full((size,), EMPTY, dtype=torch.int32, device=device)

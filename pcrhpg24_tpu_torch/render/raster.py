@@ -4,10 +4,13 @@ sort) and the image.
 Counterpart of `pcrhpg24_tpu/render/raster.py`.  The reference resolves
 a frame's (pid, depth, payload) stream by sorting it and merging the
 sorted rows (`pallas_merge._merge_matscatter_kernel`), because the TPU
-has no atomics.  Here the CUDA kernel (`csrc/raster.cu`) does one u64
-`atomicMin((depth << 32) | payload)` per live entry into a dense plane
-in the swizzled id space, unsorted; `u64_min_planes_plain` gets the same
-planes from `scatter_reduce("amin")` on biased int64 keys.  The methods
+has no atomics.  Here the CUDA kernel (`csrc/raster.cu`) resolves every
+part of a frame, unsorted, in one launch: a warp stages a tile of 32
+points of 16 chains, reads the dense plane's word for each entry's
+pixel in the swizzled id space, and does an `atomicMin` of the u64
+`(depth << 32) | payload` key for each key below its word;
+`u64_min_planes_plain` gets the same planes from
+`scatter_reduce("amin")` on biased int64 keys.  The methods
 that resolve a whole frame in linear pixel ids (`parametric`,
 `loop_nodes_compressed`) go through `sorted_resolve_u64_min[_parts]`:
 one sort by pid, then B6 (`merge.dense_from_sorted_nk1_multi`), as the
@@ -19,14 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.build import I, L, P, Kernel, check_cuda
-from ..u32 import INT32_MIN, INT64_MAX, biased_key, split_key, unbias_key
+from ..kernels.build import I, P, Kernel, part_groups
+from ..u32 import INT32_MIN, INT64_MAX, biased_key, key_views, split_key, unbias_key
 
 EMPTY = -1  # reference raster.EMPTY (0xFFFFFFFF) as int32 bits
 BACKGROUND = 0x00443322  # resolve.cu:166
 TILE_PX = 32
 
-U64_MIN = Kernel("pcr_u64_min", [P, P, P, P, L, I])
+U64_MIN = Kernel("pcr_u64_min", [P, P, P, P, I, P, I])
 
 
 def swizzle_dims(width: int, height: int):
@@ -69,23 +72,19 @@ def u64_min_planes_plain(parts, size: int):
 
 
 def u64_min_planes(parts, size: int):
-    """B3: the planes of `u64_min_planes_plain`, one kernel launch per
-    (pid, dep, pay) part into one u64 plane, then the split.
+    """B3: the planes of `u64_min_planes_plain`, one kernel launch for up
+    to 64 parts into one u64 plane.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Each part's tensors are int32 (u32 bits) of one shape.
+    Each part's tensors are int32 (u32 bits) of one shape.  On the card
+    the planes are strided views (stride 2) of the u64 plane.
     """
     if not parts[0][0].is_cuda:
         return u64_min_planes_plain(parts, size)
-    device = parts[0][0].device
-    plane = torch.full((size,), -1, dtype=torch.int64, device=device)
-    for pid, dep, pay in parts:
-        for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
-            check_cuda(name, t, torch.int32, pid.shape)
-        if pid.numel():
-            U64_MIN.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
-                           plane.data_ptr(), pid.numel(), size)
-    return split_key(plane)
+    plane = torch.full((size,), -1, dtype=torch.int64, device=parts[0][0].device)
+    for group in part_groups(parts):
+        U64_MIN.launch(*group, plane.data_ptr(), size)
+    return key_views(plane)
 
 
 def project_points(fx, fy, fz, transform, width: int, height: int):

@@ -1,5 +1,4 @@
-"""Crafted inputs for the B1, B2, B4 and B5 gates, made from a seed with
-numpy.
+"""Crafted inputs for the B1-B5 gates, made from a seed with numpy.
 
 Real scenes may never produce these patterns; the kernels must still
 give their plain versions' outputs bit for bit.
@@ -34,6 +33,14 @@ the HQS sums: every entry on one pixel, two pixels alternating along
 rows and columns, half the entries on sentinel pids, pixels whose depth
 plane is EMPTY, depths exactly at the 1 % tolerance and one ulp above
 it.
+
+`resolve_streams` builds (pid, dep, pay) streams for B3's u64 min: every
+entry on one pixel; two pixels alternating along rows and columns; depths
+tied within each pixel, so the payload decides, in groups of 4 points of
+a chain and across parts; live entries whose key is all ones (pixels
+that only they reach stay EMPTY); sentinel pids; depths falling or
+rising along the stream, so a compare before the atomic skips none or
+nearly all; and a ragged length.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ CHAINS = GROUPS * LANES
 POW2 = 2.0 ** -19
 OFF_SCREEN, BEHIND = -1, -2  # spot ids of the two clipping spots
 HQS_KINDS = ("one_pid", "alternating", "sentinel", "empty_depth", "mixed")
+RESOLVE_KINDS = ("one_pid", "alternating", "ties", "all_ones", "sentinel", "descending",
+                 "ascending", "ragged")
 
 
 def pow2_frame(batches: int):
@@ -222,3 +231,33 @@ def hqs_streams(kind: str, rows: int, size: int, seed: int = 0):
         dep[pick[:half]] = limit[:half].view(np.uint32)
         dep[pick[half:]] = np.nextafter(limit[half:], np.float32(np.inf)).view(np.uint32)
     return pid, dep, pay, fbd
+
+
+def resolve_streams(kind: str, rows: int, size: int, seed: int = 0):
+    """-> (pid, dep, pay) u32 arrays: a stream of rows x 1024 entries (515
+    fewer for `ragged`) of the given kind (`RESOLVE_KINDS`) for B3."""
+    rng = np.random.default_rng(seed)
+    n = rows * CHAINS - (515 if kind == "ragged" else 0)
+    r, c = np.divmod(np.arange(n), CHAINS)  # point index, chain
+    pixels = rng.choice(size, 64, replace=False)
+    pid = rng.choice(pixels, n)
+    dep = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    pay = rng.integers(0, 2**24, n, dtype=np.uint64).astype(np.uint32)
+    if kind == "one_pid":
+        pid[:] = pixels[0]
+    elif kind == "alternating":  # along the flat order and along columns
+        pid = np.where((r + c) % 2 == 0, pixels[0], pixels[1])
+    elif kind == "ties":  # 4 points of a chain per pixel, one depth per pixel
+        pid = pixels[(r // 4 + c) % 16]
+        dep = (0x3F800000 + pid % 3).astype(np.uint32)
+    elif kind == "all_ones":  # half the pixels only ever see the all-ones key
+        ones = np.isin(pid, pixels[::2]) | (rng.random(n) < 0.25)
+        dep[ones] = 0xFFFFFFFF
+        pay[ones] = 0xFFFFFFFF
+    elif kind == "sentinel":
+        dead = rng.random(n) < 0.5
+        pid[dead] = rng.choice([size, size + 1, 2**32 - 1], int(dead.sum()))
+    elif kind in ("descending", "ascending"):  # distinct, monotone along the stream
+        step = np.arange(n) if kind == "ascending" else n - 1 - np.arange(n)
+        dep = (0x3F800000 + step).astype(np.uint32)
+    return pid.astype(np.uint32), dep, pay

@@ -2,9 +2,12 @@
 
 Renders a scene through its method for a few warm frames, then traces
 `--frames` more with CPU and CUDA activity and prints, per frame: the
-host wall time, the device busy time (union of the kernels' and copies'
+host wall time (and that of as many frames run before, without the
+profiler), the device busy time (union of the kernels' and copies'
 device intervals), the device idle share (1 - busy / wall), each device
-kernel's time and launch count, and the peak device memory.  Scenes: a
+kernel's time and launch count, the host's self time in each torch op
+and CUDA runtime call that takes the most of it (what the host spends
+its share of the frame on), and the peak device memory.  Scenes: a
 `.tpc` file or `parametric` through the app's methods, or a `.wg` file
 through `loop_nodes_compressed` (which the app does not register, as
 the reference's does not).  Run on a host with a card:
@@ -70,6 +73,10 @@ def profile(scene: str, method: str | None, view: str, frames: int, width: int,
         resource.wait_loaded(r)
     r.loop(m.update, m.render, frames=2)  # warm
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.loop(m.update, m.render, frames=frames)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -87,10 +94,13 @@ def profile(scene: str, method: str | None, view: str, frames: int, width: int,
         kernels[e.name][0] += (t - s) / 1e3 / frames
         kernels[e.name][1] += 1
     busy = busy_us(intervals) / 1e3 / frames
-    out = dict(method=m.name, wall_ms=wall_ms, busy_ms=busy,
+    host = {e.key: (e.self_cpu_time_total / 1e3 / frames, e.count / frames)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0}
+    out = dict(method=m.name, wall_ms=wall_ms, plain_wall_ms=plain_wall_ms, busy_ms=busy,
                idle_share=1.0 - busy / wall_ms if wall_ms else float("nan"),
                peak_bytes=torch.cuda.max_memory_allocated(),
-               kernels={k: (ms, n / frames) for k, (ms, n) in kernels.items()})
+               kernels={k: (ms, n / frames) for k, (ms, n) in kernels.items()},
+               host=host)
     if resource is not None:
         resource.unload()
     Runtime.clear()
@@ -114,7 +124,8 @@ def main(argv=None) -> int:
     res = profile(args.scene, args.method, args.view, args.frames, args.width,
                   args.height, args.lod)
     print(f"[profile] {res['method']} {args.view} {args.scene}: wall "
-          f"{res['wall_ms']:.3f} ms/frame, device busy {res['busy_ms']:.3f} "
+          f"{res['wall_ms']:.3f} ms/frame (without the profiler "
+          f"{res['plain_wall_ms']:.3f}), device busy {res['busy_ms']:.3f} "
           f"ms/frame, idle share {res['idle_share']:.3f}, peak "
           f"{res['peak_bytes']:,} B ({args.frames} frames under the profiler, "
           f"{torch.cuda.get_device_name(0)})")
@@ -126,6 +137,12 @@ def main(argv=None) -> int:
               f"launches/frame: {name[:90]}")
     print(f"[profile]   {rest:.3f} ms/frame in {max(len(top) - args.top, 0)} "
           f"other device kernels and copies")
+    host = sorted(res["host"].items(), key=lambda kv: -kv[1][0])
+    total = sum(ms for _k, (ms, _n) in host)
+    print(f"[profile] host self time in torch ops and CUDA runtime calls: "
+          f"{total:.3f} ms/frame of the {res['wall_ms']:.3f} ms wall")
+    for name, (ms, n) in host[: args.top]:
+        print(f"[profile]   host {ms:.3f} ms/frame, {n:g} calls/frame: {name[:90]}")
     return 0
 
 

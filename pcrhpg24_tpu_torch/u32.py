@@ -9,7 +9,8 @@ torch has no shifts, comparisons, add or `minimum` on `uint32`, so:
   kernel keeps it as an `unsigned long long` plane that starts at all
   ones (EMPTY in both halves); the CPU `scatter_reduce("amin")` keeps it
   biased by `^ INT64_MIN` so that signed order is u64 order and EMPTY is
-  `INT64_MAX`.  `split_key` maps either back to the two u32 planes.
+  `INT64_MAX`.  `split_key` maps either back to the two u32 planes;
+  `key_views` gives the kernel's plane's halves without a copy.
 """
 
 from __future__ import annotations
@@ -63,3 +64,11 @@ def split_key(plane: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     All-ones (the kernel's initial value) splits to EMPTY in both.
     """
     return (plane >> 32).to(torch.int32), plane.to(torch.int32)
+
+
+def key_views(plane: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous int64 plane of u64 `(dep << 32) | pay` bits -> (dep,
+    pay) as strided int32 views of it (the bits of `split_key`, no copy;
+    little-endian: the payload is the low word)."""
+    words = plane.view(torch.int32)
+    return words[1::2], words[0::2]

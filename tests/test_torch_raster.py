@@ -2,9 +2,10 @@
 
 `u64_min_planes_plain` must give the planes of `raster.scatter_u64_min`
 bit for bit — every u32 depth and payload, ties on depth broken by the
-smaller payload, out-of-range pids dropped — and, on one case, the
-planes of the TPU path (`dense_from_sorted_rows` over nk3-sorted rows,
-interpret mode).
+smaller payload, out-of-range pids dropped — and, on one case and on
+the crafted ties, the planes of the TPU path (`dense_from_sorted_rows`
+over nk3-sorted rows, interpret mode).  The crafted streams of
+`tools/crafted.resolve_streams` are the ones the card holds B3 to.
 """
 
 import jax
@@ -15,7 +16,8 @@ import torch
 
 from pcrhpg24_tpu.render import raster as ref
 from pcrhpg24_tpu_torch.render import raster as port
-from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
+from pcrhpg24_tpu_torch.tools import crafted
+from pcrhpg24_tpu_torch.u32 import from_u32, key_views, split_key, to_u32
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 SIZE = 49_152  # 48 swizzle tiles of 1024
@@ -68,6 +70,95 @@ def test_u64_min_plain_equals_merge_kernel():
     got = port.u64_min_planes([tuple(from_u32(a) for a in (pid, dep, pay))], SIZE)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+
+
+def _crafted(kind, rows=16):
+    """A crafted stream and its split into four uneven parts (one of 3
+    entries, one starting mid-row)."""
+    pid, dep, pay = crafted.resolve_streams(kind, rows, SIZE, seed=11)
+    cuts = [0, 3 * 1024 + 37, 3 * 1024 + 40, 11 * 1024 + 5, len(pid)]
+    parts = [tuple(from_u32(a[x:y]) for a in (pid, dep, pay))
+             for x, y in zip(cuts, cuts[1:])]
+    return (pid, dep, pay), parts
+
+
+def _merge_kernel_planes(pid, dep, pay, rows=4):
+    """The TPU path's planes: nk3-sorted rows through the matscatter merge
+    (payloads below 2**24)."""
+    from pcrhpg24_tpu.render.pallas_merge import dense_from_sorted_rows
+
+    n = len(pid) // rows
+    sp, sd, sy = jax.lax.sort(
+        [jnp.asarray(a.reshape(rows, n)) for a in (pid, dep, pay)],
+        num_keys=3, is_stable=False, dimension=1)
+    return dense_from_sorted_rows(sp, sd, sy, SIZE, True, interpret=True,
+                                  fully_sorted=True, pay_bits=24)
+
+
+@pytest.mark.parametrize("kind", crafted.RESOLVE_KINDS)
+def test_u64_min_plain_crafted_equals_scatter(kind):
+    """Each crafted kind, in four uneven parts and in both part orders."""
+    (pid, dep, pay), parts = _crafted(kind)
+    # u32 pids, so the reference drops 2**32 - 1 as out of range
+    want = ref.scatter_u64_min(jnp.asarray(pid), jnp.asarray(dep), jnp.asarray(pay), SIZE)
+    for order in (parts, parts[::-1]):
+        got = port.u64_min_planes(order, SIZE)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+
+
+def test_u64_min_plain_crafted_ties_equals_merge_kernel():
+    """Tied depths (the payload decides) against the TPU path."""
+    (pid, dep, pay), parts = _crafted("ties")
+    want = _merge_kernel_planes(pid, dep, pay)
+    got = port.u64_min_planes(parts, SIZE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+
+
+def test_resolve_streams_reach_their_corners():
+    for kind in crafted.RESOLVE_KINDS:
+        pid, dep, pay = crafted.resolve_streams(kind, 64, SIZE, seed=11)
+        n = len(pid)
+        live = pid < SIZE
+        grid = pid[: n // 1024 * 1024].reshape(-1, 1024)  # (point, chain)
+        if kind == "one_pid":
+            assert np.unique(pid).size == 1 and live.all()
+        elif kind == "alternating":
+            assert (grid[:, 1:] != grid[:, :-1]).all() and (grid[1:] != grid[:-1]).all()
+        elif kind == "ties":
+            # 4 points of a chain share a pixel, with other payloads
+            assert (grid[0::4] == grid[3::4]).all()
+            pays = pay.reshape(-1, 1024)
+            assert (pays[0::4] != pays[1::4]).any()
+            assert all(np.unique(dep[pid == q]).size == 1 for q in np.unique(pid))
+        elif kind == "all_ones":
+            ones = (dep == 0xFFFFFFFF) & (pay == 0xFFFFFFFF)
+            only = np.setdiff1d(pid[live & ones], pid[live & ~ones])
+            assert only.size and (pid[live & ~ones].size > 0)
+            fb_d, fb_p = port.u64_min_planes(
+                [tuple(from_u32(a) for a in (pid, dep, pay))], SIZE)
+            assert (to_u32(fb_d)[only] == 0xFFFFFFFF).all()
+            assert (to_u32(fb_p)[only] == 0xFFFFFFFF).all()
+        elif kind == "sentinel":
+            assert {SIZE, SIZE + 1, 2**32 - 1} <= set(pid[~live].tolist())
+            assert 0.4 < live.mean() < 0.6
+        elif kind in ("descending", "ascending"):
+            step = np.diff(dep.astype(np.int64))
+            assert ((step < 0) if kind == "descending" else (step > 0)).all()
+        else:
+            assert kind == "ragged"
+            assert n % 1024 and n % (32 * 1024) and n % 32
+
+
+def test_key_views_equal_split_key():
+    """The card's hand-off of B3's and B6's u64 plane: strided views with
+    the bits of `split_key`, EMPTY (all ones) included."""
+    rng = np.random.default_rng(5)
+    plane = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, 4096, dtype=np.int64))
+    plane[::7] = -1
+    for v, w in zip(key_views(plane), split_key(plane)):
+        assert torch.equal(v, w)
 
 
 @pytest.mark.parametrize("w,h", [(320, 180), (1920, 1080), (64, 32)])
