@@ -24,10 +24,11 @@ Phases, each of which exits non-zero on failure:
     stream sorted by (pid, depth, payload), equal to B3's planes, with
     and without the depth plane; B9 on the HQS orbit chunk's stream
     sorted by pid, equal to B4's sums; B10 on the first 4,096 tiles of
-    that stream.  Each kernel is also held against its plain version run
-    on the CPU on a cut-down input, the path the CPU tests hold to the
-    JAX reference.  Crafted inputs (`tools/crafted.py`) that the terrain
-    may never produce: B1 and B5 on batches encoded by the port's codecs
+    that stream, also against `np.lexsort`.  Each kernel is also held
+    against its plain version run on the CPU on a cut-down input, the
+    path the CPU tests hold to the JAX reference.  Crafted inputs
+    (`tools/crafted.py`) that the terrain may never produce: B1 and B5
+    on batches encoded by the port's codecs
     that reach the formats' corners (all-zero chains, 32-bit fields and
     bucket-32 deltas, 2**24 jumps, 12-bit codes, every fbatch round count
     0..3 in one group, the widest group streams), against their plain
@@ -47,13 +48,21 @@ Phases, each of which exits non-zero on failure:
     pixels, depths tied so the payload decides, all-ones keys, sentinel
     pids, depths falling and rising along the stream, a ragged length),
     each split into 4 uneven parts and into 70 (two launches), in both
-    part orders, and on 2**24 + 1 entries of one pixel;
+    part orders, and on 2**24 + 1 entries of one pixel; B10 on crafted
+    tiles (`crafted.tile_keys`: one triple per tile, sorted, reverse
+    sorted, k0 and k1 tied so that k2 decides, INT32_MIN, INT32_MAX and
+    the sign boundary in every key, repeated triples, the HQS sentinel
+    pid) at 4,097, 1 and 0 tiles, against its plain version and
+    `np.lexsort`;
  5. main paths at 1920x1080, each view 2 warm + 10 timed frames, with
     every kernel's launch count reset just before and read just after:
     through `pcrhpg24_tpu_torch.app`, `huffman_tpu` on v2 (B1, B2, B3),
-    `huffman_tpu_hqs` on v2 (B1, B2, B3, B4), `huffman_tpu` on v1 (B5,
-    B2, B3) and `--scene parametric` (B6) at three cameras on the
-    radius-10 sphere; through `Renderer.loop` and the method class,
+    `huffman_tpu_hqs` on v2 (B1, B2, B3, B4) and `huffman_tpu` on v1
+    (B5, B2, B3) at bench.py's three views and a close-up of the
+    scene's far corner, which must leave at least one 64-batch chunk
+    with no batch in view (the live-chunk skip; each frame's live
+    chunks are printed), and `--scene parametric` (B6) at three cameras
+    on the radius-10 sphere; through `Renderer.loop` and the method class,
     `loop_nodes_compressed` on the `.wg` scene (B6) at bench.py's views.
     Each listed kernel must have launched (B3 exactly once per frame on
     the three `.tpc` paths), and each image must show points and equal,
@@ -103,6 +112,11 @@ VIEWS = {
     "closeup": dict(yaw=2.4, pitch=-0.25, radius=180.0, target=(1000.0, 1000.0, 60.0)),
     "oblique": dict(yaw=-1.1, pitch=-0.08, radius=1400.0, target=(1000.0, 1000.0, 40.0)),
 }
+# the `.tpc` paths also render a close-up of the (1900, 1850) corner:
+# Morton order keeps a chunk's batches near each other, so the frustum
+# leaves whole chunks far from the corner with no batch in view
+TPC_VIEWS = {**VIEWS,
+             "corner": dict(yaw=0.3, pitch=-0.9, radius=50.0, target=(1900.0, 1850.0, 50.0))}
 KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
     "pcr_decode_fixed": ("B1 fbatch decode", "pcrhpg24_tpu_torch/csrc/decode_fixed.cu",
                          "pcrhpg24_tpu/render/pallas_decode_fixed.py:52"),
@@ -168,6 +182,8 @@ def max_abs_err(a, b) -> int:
     import torch
 
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if not a.numel():
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -275,6 +291,17 @@ def sort_by_key3(pid, dep, pay):
         _, idx = torch.sort(k if order is None else k[order], stable=True)
         order = idx if order is None else order[idx]
     return tuple(x.reshape(-1)[order] for x in (pid, dep, pay))
+
+
+def lexsorted(got, keys) -> bool:
+    """Whether each tile of `got` is its tile of `keys` (int32 (T, 8, 128)
+    planes) in `np.lexsort` order by (k0, k1, k2)."""
+    k0, k1, k2 = (k.cpu().numpy().reshape(k.shape[0], k.shape[1] * k.shape[2])
+                  for k in keys)
+    order = np.lexsort((k2, k1, k0), axis=-1)
+    return all(np.array_equal(g.cpu().numpy().reshape(k.shape),
+                              np.take_along_axis(k, order, axis=1))
+               for g, k in zip(got, (k0, k1, k2)))
 
 
 def same_planes(got, want, what: str) -> int:
@@ -747,16 +774,28 @@ def main(argv=None) -> int:
     shapes["tiles"] = keys
     got = tile_sort3(*keys)
     errs["pcr_tile_sort3"] = same_planes(got, tile_sort3_plain(*keys), "B10 != plain")
+    check(lexsorted(got, keys), "B10 != np.lexsort on the HQS tiles")
     same_planes([g[:16] for g in got], tile_sort3_plain(*(k[:16].cpu() for k in keys)),
                 "B10 on the card != CPU plain")
-    print(f"[gate] B10 bit-exact vs tile_sort3_plain on {tiles:,} tiles of the HQS "
-          f"orbit chunk's stream; its first 16 tiles equal the CPU plain version")
-    del got, keys, hpart, hs
+    print(f"[gate] B10 bit-exact vs tile_sort3_plain and np.lexsort on {tiles:,} tiles of "
+          f"the HQS orbit chunk's stream; its first 16 tiles equal the CPU plain version")
+    # B10 on crafted tiles: 4,097 is ragged against any tiles per block
+    for kind in crafted.TILE_KINDS:
+        for n_tiles in (4097, 1, 0):
+            ck = [torch.from_numpy(k).to(DEVICE) for k in
+                  crafted.tile_keys(kind, n_tiles, seed=n_tiles)]
+            got = tile_sort3(*ck)
+            errs["pcr_tile_sort3"] = max(errs["pcr_tile_sort3"], same_planes(
+                got, tile_sort3_plain(*ck), f"B10 != plain on {n_tiles} {kind!r} tiles"))
+            check(lexsorted(got, ck), f"B10 != np.lexsort on {n_tiles} {kind!r} tiles")
+    print(f"[gate] B10 bit-exact vs tile_sort3_plain and np.lexsort on crafted tiles "
+          f"({', '.join(crafted.TILE_KINDS)}) at 4,097, 1 and 0 tiles")
+    del got, keys, ck, hpart, hs
 
     # ---- 5. main paths through the app ----
     results = {}
     for label, method_name, v, must in MAIN_PATHS:
-        for name, view in VIEWS.items():
+        for name, view in TPC_VIEWS.items():
             argv = ["--scene", scenes[v], "--method", method_name, "--device", DEVICE,
                     "--width", str(W), "--height", str(H), "--lod", "1.0",
                     "--yaw", str(view["yaw"]), "--pitch", str(view["pitch"]),
@@ -792,12 +831,17 @@ def main(argv=None) -> int:
                           f"(err {e})")
             _, lod_full = method.frame_setup(rr)
             visible = int(lod_full.astype(np.int64).sum() * 1024)
+            live = len(frame_streams(**fa)[0])  # the chunks the frame decoded
+            if name == "corner":
+                check(live < fa["nchunks"], f"{label} corner: {live} of {fa['nchunks']} "
+                                            f"chunks live, none culled")
             ms = statistics.median(rr.frame_ms[WARMUP:])
             results[(label, name)] = dict(
                 frame_ms=ms, visible=visible, shown=shown, launches=launches,
                 frames=len(rr.frame_ms[WARMUP:]))
             print(f"[main] {label} ({method_name}, .tpc v{v}) {name}: {shown:,} pixels "
-                  f"shown, image bit-exact vs the all-plain frame; launches "
+                  f"shown, image bit-exact vs the all-plain frame; {live} of "
+                  f"{fa['nchunks']} chunks live; launches "
                   f"{ {s: launches[s] for s in must} }")
             method.las.unload()
             del rr, method, img, img_plain

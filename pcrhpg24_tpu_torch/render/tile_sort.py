@@ -5,9 +5,10 @@ Counterpart of `pcrhpg24_tpu/render/pallas_raster.py`: every
 ascending by (k0, k1, k2) compared as SIGNED int32 (callers bias u32
 keys themselves).  The reference built it as a verified building block
 of a fragment compaction it never wired into a frame; no method calls
-it.  The kernel (`csrc/tile_sort.cu`) is a bitonic network in shared
-memory, one block per tile; the plain version sorts each tile with three
-stable `torch.sort` passes (k2, then k1, then k0).
+it.  The kernel (`csrc/tile_sort.cu`) keeps each tile's keys in one
+warp's registers and runs a bitonic network there (shuffles between
+lanes, no shared-memory stages, no barrier); the plain version sorts
+each tile with three stable `torch.sort` passes (k2, then k1, then k0).
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ def tile_sort3(pid, dep, pay):
     shape = (pid.shape[0], SUBL, LANES)
     for name, t in (("pid", pid), ("dep", dep), ("pay", pay)):
         check_cuda(name, t, torch.int32, shape)
+        if t.data_ptr() % 16:  # the kernel moves 16 B a lane
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     outs = tuple(torch.empty_like(pid) for _ in range(3))
     if pid.shape[0]:
         TILE_SORT3.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),

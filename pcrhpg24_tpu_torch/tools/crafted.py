@@ -41,6 +41,12 @@ a chain and across parts; live entries whose key is all ones (pixels
 that only they reach stay EMPTY); sentinel pids; depths falling or
 rising along the stream, so a compare before the atomic skips none or
 nearly all; and a ragged length.
+
+`tile_keys` builds (T, 8, 128) int32 key planes for B10's per-tile sort:
+tiles of one triple, tiles already sorted and sorted in reverse, k0 and
+k1 tied so that k2 decides, keys drawn from INT32_MIN, INT32_MAX and the
+sign boundary, a few whole triples repeated, and HQS-like tiles of which
+half the entries carry the 1080p frame's sentinel pid.
 """
 
 from __future__ import annotations
@@ -54,6 +60,10 @@ OFF_SCREEN, BEHIND = -1, -2  # spot ids of the two clipping spots
 HQS_KINDS = ("one_pid", "alternating", "sentinel", "empty_depth", "mixed")
 RESOLVE_KINDS = ("one_pid", "alternating", "ties", "all_ones", "sentinel", "descending",
                  "ascending", "ragged")
+TILE_KINDS = ("equal", "sorted", "reverse", "k2_decides", "extremes", "repeats", "sentinel")
+# the pid of an HQS entry that lands nowhere at 1920x1080: the swizzled
+# id space's size, 60 x 34 tiles of 32 x 32 pixels (`raster.swizzle_dims`)
+SENTINEL_1080P = 60 * 34 * 1024
 
 
 def pow2_frame(batches: int):
@@ -261,3 +271,36 @@ def resolve_streams(kind: str, rows: int, size: int, seed: int = 0):
         step = np.arange(n) if kind == "ascending" else n - 1 - np.arange(n)
         dep = (0x3F800000 + step).astype(np.uint32)
     return pid.astype(np.uint32), dep, pay
+
+
+def tile_keys(kind: str, tiles: int, seed: int = 0):
+    """-> (k0, k1, k2) int32 arrays of shape (tiles, 8, 128) of the given
+    kind (`TILE_KINDS`), for the per-tile sort by (k0, k1, k2) as signed
+    int32."""
+    rng = np.random.default_rng(seed)
+    shape = (tiles, CHAINS)  # a tile holds as many entries as a batch has chains
+    full = lambda size: rng.integers(-2**31, 2**31, size, dtype=np.int64)
+    keys = [full(shape) for _ in range(3)]
+    if kind == "equal":  # one triple per tile
+        keys = [np.repeat(full((tiles, 1)), CHAINS, axis=1) for _ in range(3)]
+    elif kind in ("sorted", "reverse"):
+        keys = [rng.integers(-8, 8, shape), rng.integers(-8, 8, shape), keys[2]]
+        order = np.lexsort(keys[::-1], axis=-1)
+        if kind == "reverse":
+            order = order[:, ::-1]
+        keys = [np.take_along_axis(k, order, axis=1) for k in keys]
+    elif kind == "k2_decides":  # k0 and k1 one value per tile
+        keys[0] = np.repeat(full((tiles, 1)), CHAINS, axis=1)
+        keys[1] = np.repeat(full((tiles, 1)), CHAINS, axis=1)
+    elif kind == "extremes":
+        corners = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1])
+        keys = [rng.choice(corners, shape) for _ in range(3)]
+    elif kind == "repeats":  # 16 distinct triples per tile
+        which = rng.integers(0, 16, shape)
+        keys = [np.take_along_axis(full((tiles, 16)), which, axis=1) for _ in range(3)]
+    elif kind == "sentinel":  # an HQS tile: pid, f32 depth bits, 24-bit payload
+        pid = rng.integers(0, SENTINEL_1080P, shape)
+        pid[rng.random(shape) < 0.5] = SENTINEL_1080P
+        dep = (1 + rng.random(shape) * 100).astype(np.float32).view(np.int32)
+        keys = [pid, dep, rng.integers(0, 2**24, shape)]
+    return tuple(k.astype(np.int32).reshape(tiles, GROUPS, LANES) for k in keys)

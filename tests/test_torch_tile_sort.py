@@ -4,7 +4,8 @@
 `interpret` argument, so the reference side is the same `pl.pallas_call`
 as `pallas_raster.py:119-129` around the reference's own `_sort_kernel`,
 in interpret mode.  `tile_sort3_plain` must give its tiles bit for bit,
-keys compared as signed int32.
+keys compared as signed int32, on a stream-like input and on each of
+`tools.crafted.TILE_KINDS` (the tiles the card's kernel is gated on).
 """
 
 import jax
@@ -16,6 +17,7 @@ from jax.experimental import pallas as pl
 
 from pcrhpg24_tpu.render import pallas_raster as ref
 from pcrhpg24_tpu_torch.render.tile_sort import tile_sort3
+from pcrhpg24_tpu_torch.tools import crafted
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -54,11 +56,43 @@ def test_tile_sort_equals_reference_kernel():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _assert_lexsorted(got, keys):
+    """Each tile of `got` is its tile of `keys` in `np.lexsort` order."""
+    k0, k1, k2 = (k.reshape(k.shape[0], ref.SUBL * ref.LANES) for k in keys)
+    order = np.lexsort((k2, k1, k0), axis=-1)
+    for g, k in zip(got, (k0, k1, k2)):
+        np.testing.assert_array_equal(g.numpy().reshape(k.shape),
+                                      np.take_along_axis(k, order, axis=1))
+
+
 @pytest.mark.parametrize("tiles", [1, 37])
 def test_tile_sort_equals_lexsort(tiles):
-    k0, k1, k2 = _keys(tiles, tiles)
-    got = tile_sort3(*map(torch.from_numpy, (k0, k1, k2)))
-    for t in range(tiles):
-        order = np.lexsort((k2[t].ravel(), k1[t].ravel(), k0[t].ravel()))
-        for g, k in zip(got, (k0, k1, k2)):
-            np.testing.assert_array_equal(g[t].numpy().ravel(), k[t].ravel()[order])
+    keys = _keys(tiles, tiles)
+    _assert_lexsorted(tile_sort3(*map(torch.from_numpy, keys)), keys)
+
+
+@pytest.fixture(scope="module")
+def crafted_reference():
+    """Two tiles of each crafted kind, sorted by one interpret-mode call
+    of the reference kernel -> {kind: (keys, sorted planes)}."""
+    keys = {kind: crafted.tile_keys(kind, 2, seed=3) for kind in crafted.TILE_KINDS}
+    cat = [np.concatenate([keys[kind][i] for kind in crafted.TILE_KINDS]) for i in range(3)]
+    want = [np.asarray(w) for w in _reference_tile_sort3(*map(jnp.asarray, cat))]
+    return {kind: (keys[kind], [w[2 * j:2 * j + 2] for w in want])
+            for j, kind in enumerate(crafted.TILE_KINDS)}
+
+
+@pytest.mark.parametrize("kind", crafted.TILE_KINDS)
+def test_crafted_tiles_equal_reference_kernel(kind, crafted_reference):
+    keys, want = crafted_reference[kind]
+    got = tile_sort3(*map(torch.from_numpy, keys))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    _assert_lexsorted(got, keys)
+
+
+@pytest.mark.parametrize("tiles", [0, 1, 9])
+def test_crafted_tiles_equal_lexsort(tiles):
+    for kind in crafted.TILE_KINDS:
+        keys = crafted.tile_keys(kind, tiles, seed=tiles)
+        _assert_lexsorted(tile_sort3(*map(torch.from_numpy, keys)), keys)
