@@ -7,12 +7,13 @@ Run from the repo root on a host with one NVIDIA H100:
 
 Phases, each of which exits non-zero on failure:
  1. environment: card name and power limit, torch, CUDA, nvcc;
- 2. build: every kernel (B1-B6, B8-B10) from `csrc/` with one nvcc per
-    source, all started together, then one link;
+ 2. build: every kernel (B1-B6, B8-B10, B12) from `csrc/` with one nvcc
+    per source, all started together, then one link;
  3. scenes: bench.py's synthetic terrain (`--batches` x 65,536 points,
-    cached under out/) written by the port's own preprocessor twice, as
-    `.tpc` v2 (fbatch) and as `.tpc` v1 (tbatch), and by the port's
-    Potree builder and `.wg` converter as `.wg`; all loaded onto the card;
+    cached under out/) written by the port's own preprocessor three
+    times, as `.tpc` v2 (fbatch), as `.tpc` v1 (tbatch) and as
+    `.huffman` (the reference's own format), and by the port's Potree
+    builder and `.wg` converter as `.wg`; all loaded onto the card;
  4. kernel gates, each kernel bit-exact against its plain torch version
     on the card: B1 (and the NumPy protocol mirror) and B5 (and its
     NumPy mirror) at points 64 and 32; B2 and B3 for bench.py's three
@@ -53,19 +54,30 @@ Phases, each of which exits non-zero on failure:
     sorted, k0 and k1 tied so that k2 decides, INT32_MIN, INT32_MAX and
     the sign boundary in every key, repeated triples, the HQS sentinel
     pid) at 4,097, 1 and 0 tiles, against its plain version and
-    `np.lexsort`;
+    `np.lexsort`; B12 on the first 64-batch chunk of the `.huffman` scene
+    at points 64 and 32, against its plain version (and the plain
+    version on the CPU on 4 batches), and against the port's C++
+    `.huffman` decoder on two batches; and on crafted batches
+    (`crafted.huffman_batches`: escape-heavy, all codewords 12 bits,
+    every lane's stream whole words, a one-symbol table, the buffer's
+    last batch cut short so refills read past its end, an empty
+    `separate` read by escapes of length 0 and -3) at points 64, 48,
+    32, 16 and 40;
  5. main paths at 1920x1080, each view 2 warm + 10 timed frames, with
     every kernel's launch count reset just before and read just after:
     through `pcrhpg24_tpu_torch.app`, `huffman_tpu` on v2 (B1, B2, B3),
     `huffman_tpu_hqs` on v2 (B1, B2, B3, B4) and `huffman_tpu` on v1
-    (B5, B2, B3) at bench.py's three views and a close-up of the
-    scene's far corner, which must leave at least one 64-batch chunk
-    with no batch in view (the live-chunk skip; each frame's live
-    chunks are printed), and `--scene parametric` (B6) at three cameras
+    (B5, B2, B3), and on the `.huffman` scene `huffman_mem_iter` (B12,
+    B2, B3), `huffman_hqs` (B12, B3, B4) and `huffman_tpu` on the
+    load-time transcode (B1, B2, B3; its image must also equal
+    `huffman_tpu`'s on the `.tpc` v2), at bench.py's three views and a
+    close-up of the scene's far corner, which must leave at least one
+    64-batch chunk with no batch in view (the live-chunk skip; each
+    frame's live chunks are printed), and `--scene parametric` (B6) at three cameras
     on the radius-10 sphere; through `Renderer.loop` and the method class,
     `loop_nodes_compressed` on the `.wg` scene (B6) at bench.py's views.
     Each listed kernel must have launched (B3 exactly once per frame on
-    the three `.tpc` paths), and each image must show points and equal,
+    the `.tpc` and `.huffman` paths), and each image must show points and equal,
     bit for bit, the frame built from the plain torch versions alone;
  6. times: median device frame (CUDA events), points/s, and each kernel
     beside its plain version, its bound and, where one PyTorch call
@@ -147,6 +159,9 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                        "pcrhpg24_tpu/render/pallas_hqs.py:71"),
     "pcr_tile_sort3": ("B10 per-tile 3-key sort", "pcrhpg24_tpu_torch/csrc/tile_sort.cu",
                        "pcrhpg24_tpu/render/pallas_raster.py:101"),
+    # no Pallas counterpart: the reference decodes `.huffman` in plain XLA
+    "pcr_decode_huffman": ("B12 .huffman decode", "pcrhpg24_tpu_torch/csrc/decode_huffman.cu",
+                           "pcrhpg24_tpu/render/decode_jax.py:34 (XLA, no pallas_call)"),
 }
 # cameras of the parametric scene: target (0, 0, 0) on the radius-10 sphere
 # (the app's default radius of 1000 leaves it a few pixels wide)
@@ -155,12 +170,19 @@ PARAM_VIEWS = {
     "mid": dict(yaw=-1.2, pitch=-0.7, radius=22.0, target=(0.0, 0.0, 0.0)),
     "far": dict(yaw=2.0, pitch=0.25, radius=35.0, target=(0.0, 0.0, 0.0)),
 }
-# main paths: (label, method, scene version, kernels it must launch)
+# main paths: (label, method, scene: `.tpc` version or "huffman", kernels
+# it must launch)
 MAIN_PATHS = [
     ("colour v2", "huffman_tpu", 2, ("pcr_decode_fixed", "pcr_project", "pcr_u64_min")),
     ("hqs v2", "huffman_tpu_hqs", 2,
      ("pcr_decode_fixed", "pcr_project", "pcr_u64_min", "pcr_hqs_sums")),
     ("colour v1", "huffman_tpu", 1, ("pcr_decode_native", "pcr_project", "pcr_u64_min")),
+    ("colour huffman", "huffman_mem_iter", "huffman",
+     ("pcr_decode_huffman", "pcr_project", "pcr_u64_min")),
+    ("hqs huffman", "huffman_hqs", "huffman",
+     ("pcr_decode_huffman", "pcr_u64_min", "pcr_hqs_sums")),
+    ("huffman->v2", "huffman_tpu", "huffman",
+     ("pcr_decode_fixed", "pcr_project", "pcr_u64_min")),
 ]
 # the (path, view) whose launches are reported; None: reached by no method
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
@@ -169,7 +191,12 @@ OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2"
          "pcr_u64_min:hqs": ("hqs v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
          "pcr_decode_native": ("colour v1", "orbit"),
          "pcr_merge_nk1": ("parametric", "near"), "pcr_merge_heads": None,
-         "pcr_hqs_sorted": None, "pcr_tile_sort3": None}
+         "pcr_hqs_sorted": None, "pcr_tile_sort3": None,
+         "pcr_decode_huffman": ("colour huffman", "orbit")}
+# B12's arguments: the whole flat buffers, then each batch's rows
+REF_KEYS = ("encoding", "enc_offsets", "cluster_sizes", "separate", "sep_offsets",
+            "separate_sizes", "table_values", "table_cw_len", "start_values")
+WHOLE_BUFFERS = ("encoding", "separate")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -240,23 +267,26 @@ def hqs_rows(pid, dep, pay, fb_depth, size: int):
     return idx, vals
 
 
-def build_scenes(base: str, batches: int) -> float:
+def build_scenes(base: str, batches: int) -> tuple[float, float]:
     """bench.py's generator (bench.py:86-102), written by the port's
-    preprocessor as `<base>_v2.tpc` and `<base>_v1.tpc` and by its Potree
-    builder and `.wg` converter as `<base>.wg`; -> seconds."""
+    preprocessor as `<base>_v2.tpc`, `<base>_v1.tpc` and `<base>.huffman`
+    and by its Potree builder and `.wg` converter as `<base>.wg`;
+    -> (seconds in all, seconds writing the `.huffman`)."""
     import shutil
 
     from pcrhpg24_tpu_torch.formats.las import write_las
     from pcrhpg24_tpu_torch.formats.potree import build_potree
-    from pcrhpg24_tpu_torch.preprocess import preprocess_las_tpc
+    from pcrhpg24_tpu_torch.preprocess import preprocess_las, preprocess_las_tpc
     from pcrhpg24_tpu_torch.tools.potree_to_wg import convert
     from pcrhpg24_tpu_torch.utils.synthetic import cloud_to_grid, terrain_cloud
 
     todo = [(v, codec) for v, codec in ((2, "fixed"), (1, "huffman"))
             if not os.path.exists(f"{base}_v{v}.tpc")]
+    huf = base + ".huffman"
     wg = base + ".wg"
-    if not todo and os.path.exists(wg):
-        return 0.0
+    huf_s = 0.0
+    if not todo and os.path.exists(wg) and os.path.exists(huf):
+        return 0.0, huf_s
     t0 = time.perf_counter()
     xyz, rgb = terrain_cloud(batches * 65536, seed=1, extent=2000.0)
     if not os.path.exists(wg):
@@ -265,7 +295,7 @@ def build_scenes(base: str, batches: int) -> float:
         convert(potree, wg + ".tmp", precision=0.001)
         os.replace(wg + ".tmp", wg)
         shutil.rmtree(potree)
-    if todo:
+    if todo or not os.path.exists(huf):
         grid = cloud_to_grid(xyz, scale=(0.001, 0.001, 0.001))
         las = base + ".las"
         write_las(las, grid[:, 0], grid[:, 1], grid[:, 2], rgb)
@@ -274,8 +304,13 @@ def build_scenes(base: str, batches: int) -> float:
             out = f"{base}_v{v}.tpc"
             preprocess_las_tpc(las, out + ".tmp", sort=True, verbose=False, codec=codec)
             os.replace(out + ".tmp", out)
+        if not os.path.exists(huf):
+            t1 = time.perf_counter()
+            preprocess_las(las, huf + ".tmp", sort=True, verbose=False)
+            os.replace(huf + ".tmp", huf)
+            huf_s = time.perf_counter() - t1
         os.remove(las)
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, huf_s
 
 
 def sort_by_key3(pid, dep, pay):
@@ -360,12 +395,17 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.engine.debug import Debug
     from pcrhpg24_tpu_torch.engine.method import Runtime
     from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
+    from pcrhpg24_tpu_torch.engine.resource import HuffmanLasData
     from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
     from pcrhpg24_tpu_torch.formats.native_file import decode_tpc_batch_coords, read_tpc_batch
     from pcrhpg24_tpu_torch.kernels import build
     from pcrhpg24_tpu_torch.render.camera import frame_setup_device
+    from pcrhpg24_tpu_torch import native
+    from pcrhpg24_tpu_torch.codec.batch_codec import deltas_to_coords
+    from pcrhpg24_tpu_torch.formats.huffman_file import read_batch, read_file_header
     from pcrhpg24_tpu_torch.render.decode_fixed import (
         decode_fixed_batches, decode_fixed_plain, pack_fixed_batches)
+    from pcrhpg24_tpu_torch.render.decode_huffman import decode_ref_batches, decode_ref_plain
     from pcrhpg24_tpu_torch.render.decode_tbatch import (
         decode_native_batches, decode_native_plain, pack_native_batches)
     from pcrhpg24_tpu_torch.render.hqs import (
@@ -374,6 +414,8 @@ def main(argv=None) -> int:
         MERGE_NK1, dense_from_sorted, dense_from_sorted_nk1, dense_from_sorted_plain)
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu import (
         CHUNK, HuffmanTpu, frame_streams, render_frame_native)
+    from pcrhpg24_tpu_torch.render.methods.huffman_hqs import hqs_huffman_frame
+    from pcrhpg24_tpu_torch.render.methods.huffman_mem_iter import mem_iter_frame
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import hqs_frame_native
     from pcrhpg24_tpu_torch.render.methods.loop_las import resolve_indexed
     from pcrhpg24_tpu_torch.render.methods.loop_nodes_compressed import (
@@ -416,7 +458,8 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(REPO, "out"), exist_ok=True)
     base = os.path.join(REPO, "out", f"chip_smoke_{args.batches}")
     scenes = {v: f"{base}_v{v}.tpc" for v in (2, 1)}
-    gen_s = build_scenes(base, args.batches)
+    huf_path = base + ".huffman"
+    gen_s, huf_s = build_scenes(base, args.batches)
     data = {}
     for v, path in scenes.items():
         t0 = time.perf_counter()
@@ -434,7 +477,14 @@ def main(argv=None) -> int:
           f"{os.path.getsize(base + '.wg'):,} B on disk; loaded in "
           f"{time.perf_counter() - t0:.1f} s; {nbytes(*wg.dev.values()):,} B resident "
           f"on the card")
-    print(f"[scene] all three generated in {gen_s:.1f} s (0 = cached); allocated "
+    t0 = time.perf_counter()
+    huf = HuffmanLasData.create(huf_path, DEVICE).wait_loaded()
+    torch.cuda.synchronize()
+    print(f"[scene] .huffman: {huf_path} {huf.num_batches} batches, {huf.num_points:,} "
+          f"points, {os.path.getsize(huf_path):,} B on disk; written in {huf_s:.1f} s "
+          f"(0 = cached); loaded in {time.perf_counter() - t0:.1f} s; "
+          f"{nbytes(*huf.dev.values()):,} B resident on the card")
+    print(f"[scene] all four generated in {gen_s:.1f} s (0 = cached); allocated "
           f"{torch.cuda.memory_allocated():,} B")
 
     # ---- 4. kernel gates ----
@@ -512,6 +562,49 @@ def main(argv=None) -> int:
               f"(widest group stream {words:,} words), and vs its plain version with "
               f"every 7th round pointer moved back 2,000 words")
     del cin, back, got, want
+
+    # B12 on the .huffman scene's first chunk: against its plain version,
+    # the plain version on the CPU and the port's C++ decoder
+    hd = huf.dev
+    huf_in = [hd[k] if k in WHOLE_BUFFERS else hd[k][sl] for k in REF_KEYS]
+    huf_hdr = read_file_header(huf_path)
+    huf_batches = {b: read_batch(huf_path, huf_hdr, b)
+                   for b in (0, min(huf.num_batches, CHUNK) - 1)}
+    for pts in (64, 32):
+        got = decode_ref_batches(*huf_in, points=pts)
+        want = decode_ref_plain(*huf_in, points=pts)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"pcr_decode_huffman != plain at points={pts} (max err {e})")
+        errs["pcr_decode_huffman"] = max(errs["pcr_decode_huffman"], e)
+        cpu = decode_ref_plain(*(x.cpu() if k in WHOLE_BUFFERS else x[:4].cpu()
+                                 for k, x in zip(REF_KEYS, huf_in)), points=pts)
+        check(torch.equal(got[:4].cpu(), cpu),
+              f"pcr_decode_huffman on the card != CPU plain at points={pts}")
+        for b, rb in huf_batches.items():
+            deltas = native.decode_ref_batch_deltas(
+                rb.encoding, rb.cluster_sizes, rb.separate, rb.separate_sizes,
+                rb.decoder_values, rb.decoder_cw_len)
+            mirror = deltas_to_coords(deltas, rb.start_values).reshape(1024, 64, 3)
+            mine = got[b].permute(2, 3, 0, 1).reshape(1024, pts, 3).cpu().numpy()
+            check(np.array_equal(mine, mirror[:, :pts]),
+                  f"pcr_decode_huffman != the C++ decoder on batch {b} at points={pts}")
+    print(f"[gate] {KERNEL_INFO['pcr_decode_huffman'][0]}: bit-exact vs its plain version "
+          f"(64 batches), the plain version on the CPU (4 batches) and the C++ "
+          f".huffman decoder (batches {sorted(huf_batches)}) at points 64 and 32")
+    for kind in crafted.HUFFMAN_KINDS:
+        ch = crafted.huffman_batches(kind, seed=5)
+        cin = [(from_u32(ch[k]) if k == "encoding" else torch.from_numpy(ch[k])).to(DEVICE)
+               for k in REF_KEYS]
+        for pts in (64, 48, 32, 16, 40):
+            e = max_abs_err(decode_ref_batches(*cin, points=pts),
+                            decode_ref_plain(*cin, points=pts))
+            check(e == 0, f"pcr_decode_huffman != plain on crafted {kind!r} batches at "
+                          f"points={pts} (max err {e})")
+        print(f"[gate] crafted {KERNEL_INFO['pcr_decode_huffman'][0]} {kind!r}: bit-exact "
+              f"vs its plain version at points 64, 48, 32, 16 and 40 "
+              f"({ch['encoding'].size:,} words, {ch['separate'].size:,} escapes)")
+    del cin, got, want, cpu
 
     r = Renderer(W, H, DEVICE)
     m = HuffmanTpu(r, data[2])
@@ -794,16 +887,24 @@ def main(argv=None) -> int:
 
     # ---- 5. main paths through the app ----
     results = {}
+    colour_v2 = {}  # huffman_tpu's images on the .tpc v2, by view
+    tpc_f32 = None  # the .tpc v2 with las_min rounded to f32
+    plain_frames = {"huffman_tpu": lambda fa: render_frame_native(**fa, plain=True)[1],
+                    "huffman_tpu_hqs": lambda fa: hqs_frame_native(**fa, plain=True)[2],
+                    "huffman_mem_iter": lambda fa: mem_iter_frame(**fa, plain=True)[2],
+                    "huffman_hqs": lambda fa: hqs_huffman_frame(**fa, plain=True)[2]}
     for label, method_name, v, must in MAIN_PATHS:
+        tag = "huffman" if v == "huffman" else f"v{v}"
+        path = huf_path if v == "huffman" else scenes[v]
         for name, view in TPC_VIEWS.items():
-            argv = ["--scene", scenes[v], "--method", method_name, "--device", DEVICE,
+            argv = ["--scene", path, "--method", method_name, "--device", DEVICE,
                     "--width", str(W), "--height", str(H), "--lod", "1.0",
                     "--yaw", str(view["yaw"]), "--pitch", str(view["pitch"]),
                     "--radius", str(view["radius"]),
                     "--target", *map(str, view["target"]),
                     "--frames", str(WARMUP + FRAMES)]
             if name == "orbit":
-                shot = f"chip_smoke_{method_name}_v{v}_orbit.png"
+                shot = f"chip_smoke_{method_name}_{tag}_orbit.png"
                 argv += ["--screenshot", os.path.join(REPO, "out", shot)]
             for k in build.KERNELS.values():
                 k.launches = 0
@@ -821,27 +922,47 @@ def main(argv=None) -> int:
             check(shown > 0, f"{label} {name}: the image is all background")
             method = Runtime.selected
             fa = method.frame_args(rr)
-            if method_name == "huffman_tpu_hqs":
-                *_planes, img_plain = hqs_frame_native(**fa, plain=True)
-            else:
-                _fb, img_plain = render_frame_native(**fa, plain=True)
+            img_plain = plain_frames[method_name](fa)
             torch.cuda.synchronize()
             e = max_abs_err(img, img_plain)
             check(e == 0, f"{label} {name}: main-path image != all-plain frame "
                           f"(err {e})")
+            same = ""
+            if label == "colour v2":
+                colour_v2[name] = img.cpu()
+            if label == "huffman->v2":  # tests/test_native_pipeline.py:227-244
+                # `.huffman` stores las_min as f32, `.tpc` as f64: the same
+                # points on the same kernels, with the `.tpc`'s las_min
+                # rounded as the `.huffman`'s, give the same image
+                if tpc_f32 is None:
+                    tpc_f32 = NativeLasData.create(scenes[2], DEVICE)
+                    tpc_f32.las_min = np.float32(tpc_f32.las_min).astype(np.float64)
+                    tpc_f32.wait_loaded()
+                check(np.array_equal(tpc_f32.las_min, method.las.las_min),
+                      "the .huffman's las_min is not the .tpc's rounded to f32")
+                want = render_frame_native(**HuffmanTpu(rr, tpc_f32).frame_args(rr))[1]
+                check(torch.equal(img, want),
+                      f"{label} {name}: image != huffman_tpu's on the .tpc v2 with "
+                      f"las_min in f32")
+                moved = int((img.cpu() != colour_v2[name]).sum())
+                same = (f"; equal to huffman_tpu's image on the .tpc v2 with las_min in "
+                        f"f32 ({moved:,} pixels differ from the f64 las_min's)")
             _, lod_full = method.frame_setup(rr)
             visible = int(lod_full.astype(np.int64).sum() * 1024)
-            live = len(frame_streams(**fa)[0])  # the chunks the frame decoded
+            # the chunks the frame decoded
+            nchunks = -(-method.las.num_batches // CHUNK)
+            live = len(fa["chunks"]) if "chunks" in fa else len(frame_streams(**fa)[0])
             if name == "corner":
-                check(live < fa["nchunks"], f"{label} corner: {live} of {fa['nchunks']} "
-                                            f"chunks live, none culled")
+                check(live < nchunks, f"{label} corner: {live} of {nchunks} "
+                                      f"chunks live, none culled")
             ms = statistics.median(rr.frame_ms[WARMUP:])
             results[(label, name)] = dict(
                 frame_ms=ms, visible=visible, shown=shown, launches=launches,
                 frames=len(rr.frame_ms[WARMUP:]))
-            print(f"[main] {label} ({method_name}, .tpc v{v}) {name}: {shown:,} pixels "
-                  f"shown, image bit-exact vs the all-plain frame; {live} of "
-                  f"{fa['nchunks']} chunks live; launches "
+            scene = ".huffman" if v == "huffman" else f".tpc v{v}"
+            print(f"[main] {label} ({method_name}, {scene}) {name}: {shown:,} pixels "
+                  f"shown, image bit-exact vs the all-plain frame{same}; {live} of "
+                  f"{nchunks} chunks live; launches "
                   f"{ {s: launches[s] for s in must} }")
             method.las.unload()
             del rr, method, img, img_plain
@@ -900,6 +1021,8 @@ def main(argv=None) -> int:
         del rw, m
     wg.unload()
     torch.cuda.empty_cache()
+
+    tpc_f32.unload()
 
     # ---- 6. times: kernels at the frame's shapes (one orbit chunk; B6 at the
     # parametric frame's, B10 at 4,096 tiles of the HQS chunk) ----
@@ -962,6 +1085,8 @@ def main(argv=None) -> int:
                            lambda: plane4.index_add_(0, idx9, vals9)),
         "pcr_tile_sort3": (lambda: tile_sort3(*tiles), lambda: tile_sort3_plain(*tiles),
                            None),  # a per-tile 3-key sort is no one PyTorch call
+        "pcr_decode_huffman": (lambda: decode_ref_batches(*huf_in, points=dpts),
+                               lambda: decode_ref_plain(*huf_in, points=dpts), None),
     }
     # least bytes each function must move (inputs read once, outputs
     # written once), at the timed shapes; the decoders read each batch's
@@ -984,6 +1109,12 @@ def main(argv=None) -> int:
         "pcr_merge_heads": nbytes(*s3) + 8 * size,
         "pcr_hqs_sorted": nbytes(*hs, hfb) + 16 * size,
         "pcr_tile_sort3": 2 * nbytes(*tiles),  # each key read once, written once
+        # the chunk's rows, its own stream words and escapes, the coordinates
+        "pcr_decode_huffman": (nbytes(*(x for k, x in zip(REF_KEYS, huf_in)
+                                                if k not in WHOLE_BUFFERS))
+                               + 4 * int(hd["cluster_sizes"][sl, -1].sum())
+                               + 4 * int(hd["separate_sizes"][sl, -1].sum())
+                               + CHUNK * dpts * 3 * 1024 * 4),
     }
     timed_at = {  # what each kernel is timed on
         "pcr_merge_nk1": f"the parametric near frame's pid-sorted stream, "
@@ -992,6 +1123,8 @@ def main(argv=None) -> int:
         "pcr_hqs_sorted": f"one orbit HQS chunk sorted by pid, {hn:,} entries",
         "pcr_tile_sort3": f"{tiles[0].shape[0]:,} tiles of the orbit HQS chunk",
         "pcr_hqs_sums": f"one orbit HQS chunk, {hn:,} entries",
+        "pcr_decode_huffman": f"the .huffman scene's first {CHUNK} batches at points "
+                              f"{dpts}",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
         **{f"pcr_u64_min:{row}": f"the orbit frame's {len(fparts[mode])} {mode} parts, "
                                  f"{sum(p[0].numel() for p in fparts[mode]):,} entries"

@@ -1,14 +1,21 @@
 """Application entry: scene, method, render loop — the port's CLI.
 
-Counterpart of `pcrhpg24_tpu/app.py` for `.tpc` scenes (v2 fbatch or v1
-tbatch, BC1 colours): the colour frame `huffman_tpu` or the HQS blend
-`huffman_tpu_hqs`; and for the procedural `parametric` scene (a
-radius-10 sphere at the origin).  Rendered on one device, offscreen,
+Counterpart of `pcrhpg24_tpu/app.py` for `.huffman` scenes (the
+reference's own format: `huffman_mem_iter`, the default, `huffman_hqs`,
+and `huffman_tpu` on the load-time transcode to fbatch), `.tpc` scenes
+(v2 fbatch or v1 tbatch, BC1 colours: the colour frame `huffman_tpu` or
+the HQS blend `huffman_tpu_hqs`) and the procedural `parametric` scene
+(a radius-10 sphere at the origin).  Rendered on one device, offscreen,
 with PNG export and a timing report.
 
+Unlike the reference, a failed `.huffman` load-time transcode is not
+caught: its error propagates, so a broken C++ codec core cannot leave
+the scene with one method missing unnoticed.
+
 Usage:
-  python -m pcrhpg24_tpu_torch.app --scene out/scene.tpc|parametric
-      [--method huffman_tpu|huffman_tpu_hqs] [--frames 3] [--width 1920 --height 1080]
+  python -m pcrhpg24_tpu_torch.app --scene out/scene.huffman|out/scene.tpc|parametric
+      [--method huffman_mem_iter|huffman_hqs|huffman_tpu|huffman_tpu_hqs]
+      [--frames 3] [--width 1920 --height 1080]
       [--yaw -0.15 --pitch -0.57 --radius 1000 --target x y z]
       [--lod 0.1] [--screenshot out/frame.png] [--stats] [--device cuda]
 """
@@ -25,8 +32,6 @@ from .engine.renderer import Renderer, Setting
 
 def _not_yet(scene_path: str) -> str:
     """The ROADMAP item that ports a scene kind the reference renders."""
-    if scene_path.endswith(".huffman"):
-        return ".huffman scenes are ROADMAP A7 (load-time transcode) and A11"
     if scene_path.endswith(".laz") or "," in scene_path or "*" in scene_path:
         return "multi-file and .laz scenes (las_sparse) are ROADMAP A11"
     if scene_path.endswith(".las"):
@@ -41,6 +46,19 @@ def build_methods(renderer: Renderer, scene_path: str):
         from .render.methods.parametric import Parametric
 
         Runtime.add_method(Parametric(renderer))
+        return Runtime.methods
+    if scene_path.endswith(".huffman"):
+        from .engine.native_resource import HuffmanNativeData
+        from .engine.resource import HuffmanLasData
+        from .render.methods.huffman_hqs import HuffmanHQS
+        from .render.methods.huffman_mem_iter import HuffmanMemIter
+        from .render.methods.huffman_tpu import HuffmanTpu
+
+        data = HuffmanLasData.create(scene_path, renderer.device)
+        Runtime.add_method(HuffmanMemIter(renderer, data))
+        Runtime.add_method(HuffmanHQS(renderer, data))
+        Runtime.add_method(HuffmanTpu(
+            renderer, HuffmanNativeData.create(scene_path, renderer.device)))
         return Runtime.methods
     if not scene_path.endswith(".tpc"):
         raise NotImplementedError(_not_yet(scene_path))

@@ -1,8 +1,8 @@
 """Carry device state between the reference and the port.
 
-The reference's `NativeLasData.dev` holds u32 arrays (`streams`,
-`colors`, `colors_k`) beside i32 and f32 ones; the port holds the u32
-ones as int32 bit views.  `dev_from_numpy` turns the reference's arrays
+The reference's `NativeLasData.dev` and `HuffmanLasData.dev` hold u32
+arrays (`streams`, `encoding`, `colors`, `colors_k`) beside i32 and f32
+ones; the port holds the u32 ones as int32 bit views.  `dev_from_numpy` turns the reference's arrays
 (as numpy) into the port's tensors on `device`; `dev_to_numpy` goes
 back, so tests can feed both packages identical state and compare it.
 """
@@ -15,7 +15,7 @@ import torch
 from . import device_of
 from .u32 import from_u32, to_u32
 
-U32_KEYS = frozenset({"streams", "colors", "colors_k"})
+U32_KEYS = frozenset({"streams", "encoding", "colors", "colors_k"})
 
 
 def dev_from_numpy(dev: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:

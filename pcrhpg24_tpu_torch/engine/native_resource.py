@@ -10,21 +10,29 @@ so the projection kernel serves v1 too; the reference projects v1 with
 XLA ops of the same formula and order.  The stream buffer is sized from
 the header's `max_group_words`, which bounds every batch of the file; a
 batch wider than that fails its packing instead of being cut.  Raw/BC7
-colours are ROADMAP A11, the `.huffman` load-time path
-(`HuffmanNativeData`, whose buffer must grow, ROADMAP C2) A7.
+colours are ROADMAP A11.
+
+`HuffmanNativeData` is the reference `.huffman` scene on the same path,
+with the format conversion at load time (the fused C++ transcode of
+`native.transcode_ref_batch` on a pool of loader threads).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Queue
 
 import numpy as np
 import torch
 
 from .. import device_of
+from .. import native as codec_core
+from ..codec.fixed import FixedBatch
 from ..constants import TPU_GROUPS_PER_BATCH, WORKGROUP_SIZE
+from ..formats.huffman_file import read_batch, read_file_header
 from ..formats.native_file import COLOR_WORDS, read_tpc_batch, read_tpc_header
 from ..render.decode_fixed import pack_fixed_batches
 from ..render.decode_tbatch import pack_native_batches
@@ -188,3 +196,101 @@ class NativeLasData(Resource):
             self.process(renderer, max_tasks=1_000_000)
             time.sleep(0.01)
         return self
+
+
+def _transcode(b):
+    """A `.huffman` batch record -> (FixedBatch, BC1 colours)."""
+    st, wd, pt, mn, mx = codec_core.transcode_ref_batch(b)
+    fb = FixedBatch(streams=st, widths=wd,
+                    start_values=np.asarray(b.start_values, np.int32).reshape(-1, 3),
+                    bbox_min_i=mn, bbox_max_i=mx, round_ptrs=pt)
+    return fb, np.asarray(b.color, np.uint32)
+
+
+class HuffmanNativeData(NativeLasData):
+    """Reference `.huffman` scene on the `.tpc` v2 path (B1 -> B2 -> B3),
+    with the format conversion at LOAD TIME — no `.tpc` on disk.
+
+    Counterpart of `pcrhpg24_tpu/engine/native_resource.py:
+    HuffmanNativeData`.  The loader thread reads reference batch blobs
+    and a worker pool runs the fused C++ transcode (reference Huffman
+    decode -> fbatch fixed-width re-encode in one call; the decoded
+    deltas ARE the fixed codec's chain deltas).  Decoded geometry is
+    bit-identical to the `.huffman` decode, so the image equals the
+    `.tpc` v2 scene's of the same LAS.
+
+    The reference header carries no group-width bound, so the device
+    stream buffer starts at 1.5x batch 0's width and grows (one realloc
+    + copy) when a task it uploads holds a wider batch.  The check runs
+    on each popped task, so no batch can arrive unchecked (the
+    reference checks the queue before popping, and loses a wider batch
+    that arrives in between).
+    """
+
+    BATCHES_PER_TASK = 32
+
+    def __init__(self, path: str, device, budget_batches: int | None = None):
+        if not codec_core.available():
+            raise RuntimeError("the native codec core (g++) is required for "
+                               "the .huffman load-time transcode")
+        self.device = device_of(device)
+        self.path = path
+        self.ref_hdr = read_file_header(path)
+        self.dataset_batches = self.ref_hdr.num_batches
+        nb = self.ref_hdr.num_batches
+        if budget_batches is not None:
+            nb = min(nb, budget_batches)
+        self.resident_limited = nb < self.ref_hdr.num_batches
+        self.dataset_points = self.dataset_batches * WORKGROUP_SIZE * 64
+        self.num_batches = nb
+        self.num_points = nb * WORKGROUP_SIZE * 64
+        self.num_batches_loaded = 0
+        self.num_points_loaded = 0
+        self.version = 2
+        self.color_fmt = "bc1"
+        b0 = read_batch(path, self.ref_hdr, 0)
+        self._fb0 = _transcode(b0)
+        self.maxt = (self._fb0[0].streams.shape[1] * 3 // 2 + 127) // 128 + 4
+        self.maxw = self.maxt * 128
+        self.dev: dict[str, torch.Tensor] = {}
+        self.scale = np.asarray(b0.las_scale)
+        self.offset = np.asarray(b0.las_offset)
+        self.las_min = np.asarray(b0.las_min, np.float64)
+        self.bbox_min = np.zeros((nb, 3), np.float32)
+        self.bbox_max = np.zeros((nb, 3), np.float32)
+        b_pad = -(-nb // CHUNK) * CHUNK
+        self.anchor_i = np.zeros((b_pad, 3), np.int64)
+        self._queue: Queue = Queue()
+        self._thread = None
+        self._abort = threading.Event()
+
+    def _loader_main(self):
+        def one(i):
+            if i == 0:
+                return self._fb0
+            return _transcode(read_batch(self.path, self.ref_hdr, i))
+
+        try:
+            # the C++ transcode releases the GIL (ctypes), so a small
+            # pool overlaps IO + conversion; sized to the host
+            workers = min(8, os.cpu_count() or 1)
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                for start in range(0, self.num_batches, self.BATCHES_PER_TASK):
+                    if self._abort.is_set():
+                        return
+                    end = min(start + self.BATCHES_PER_TASK, self.num_batches)
+                    self._queue.put((start, list(pool.map(one, range(start, end)))))
+        except Exception as e:  # surfaced on the render thread by process()
+            self._queue.put(("error", e))
+
+    def _upload(self, start: int, items):
+        need = max(-(-fb.streams.shape[1] // 128) + 4 for fb, _c in items)
+        if need > self.maxt:
+            old = self.dev["streams"]
+            grown = torch.zeros((old.shape[0], need, G, 128), dtype=old.dtype,
+                                device=old.device)
+            grown[:, :old.shape[1]] = old
+            self.dev["streams"] = grown
+            self.maxt = need
+            self.maxw = need * 128
+        super()._upload(start, items)

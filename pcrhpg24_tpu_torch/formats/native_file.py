@@ -43,7 +43,7 @@ import struct
 import numpy as np
 
 from ..codec.fixed import FixedBatch
-from ..codec.native import CanonicalCode, NativeBatch
+from ..codec.native import CanonicalCode, NativeBatch, encode_native_batch
 from ..constants import (
     POINTS_PER_THREAD,
     POINTS_PER_WORKGROUP,
@@ -247,6 +247,96 @@ def decode_tpc_batch_coords(batch) -> np.ndarray:
 
 def transcode_huffman_to_tpc(huffman_path: str, tpc_path: str, verbose=True,
                              codec: str = "fixed", workers: int | None = None):
-    """Reference `.huffman` -> `.tpc` (pcrhpg24_tpu/formats/native_file.py)."""
-    raise NotImplementedError(
-        "the .huffman -> .tpc transcode is ROADMAP A7 (.huffman scenes)")
+    """Reference `.huffman` -> `.tpc`: decode each batch with the CPU
+    codec and re-encode in the TPU-native layout (decoded coordinates
+    are bit-identical; colors are passed through unchanged).
+
+    Batches are independent, so the transcode runs on a thread pool
+    (the C++ codec core releases the GIL across its ctypes calls) and
+    blobs append to the output file as their turn comes — O(workers)
+    memory at any scene size; the header's size table is backfilled at
+    the end.  Reference ingest analogue: HuffmanLasLoader.cpp:81-149.
+    """
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..codec.batch_codec import decode_batch, deltas_to_coords
+    from ..codec.fixed import encode_fixed_batch
+    from ..formats.huffman_file import read_batch, read_file_header
+    from .. import native as _ncore
+
+    encode = encode_fixed_batch if codec == "fixed" else encode_native_batch
+    v2 = codec == "fixed"
+    hdr = read_file_header(huffman_path)
+    nb = hdr.num_batches
+    workers = workers or min(8, os.cpu_count() or 1)
+
+    meta = {}
+
+    def one(i: int):
+        b = read_batch(huffman_path, hdr, i)
+        if v2 and _ncore.available():
+            # fused C++ decode + fbatch re-encode (the decoded reference
+            # deltas ARE the fixed codec's chain deltas): 6.4 -> 16.8
+            # Mpts/s per core on the bench scene
+            from ..codec.fixed import FixedBatch
+
+            st, wdt, pt, mn, mx = _ncore.transcode_ref_batch(b)
+            fb = FixedBatch(
+                streams=st, widths=wdt,
+                start_values=np.asarray(b.start_values,
+                                        np.int32).reshape(-1, 3),
+                bbox_min_i=mn, bbox_max_i=mx, round_ptrs=pt)
+        else:
+            if _ncore.available():
+                deltas = _ncore.decode_ref_batch_deltas(
+                    b.encoding, b.cluster_sizes, b.separate,
+                    b.separate_sizes, b.decoder_values, b.decoder_cw_len,
+                )
+            else:
+                deltas = decode_batch(
+                    b.encoding, b.cluster_sizes, b.separate,
+                    b.separate_sizes, b.decoder_values, b.decoder_cw_len,
+                )
+            coords = deltas_to_coords(deltas, b.start_values)
+            fb = encode(coords[:, 0], coords[:, 1], coords[:, 2])
+        color = np.asarray(b.color, np.uint32)
+        blob = batch_to_blob_v2(fb, color) if v2 else batch_to_blob(fb, color)
+        gw = (fb.streams.shape[1] if v2
+              else max(len(s_) for s_ in fb.streams))
+        if i == 0:
+            meta.update(scale=b.las_scale, offset=b.las_offset,
+                        las_min=b.las_min, las_max=b.las_max)
+        return blob, gw
+
+    sizes = np.zeros(nb, np.int64)
+    max_gw = 0
+    magic = MAGIC2 if v2 else MAGIC
+    hdr_fixed = 4 + 24 + 96  # magic + 3 i64 + 12 f64
+    with open(tpc_path, "wb") as f:
+        f.seek(hdr_fixed + 8 * nb)  # blobs start after the size table
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            # bounded submission window: completed-but-unwritten blobs
+            # never exceed ~2x workers, whatever the scene size
+            from collections import deque
+
+            window: deque = deque()
+            nxt = 0
+            for i in range(nb):
+                while nxt < min(nb, i + 2 * workers):
+                    window.append(pool.submit(one, nxt))
+                    nxt += 1
+                blob, gw = window.popleft().result()
+                f.write(blob)
+                sizes[i] = len(blob)
+                max_gw = max(max_gw, gw)
+                if verbose and i % 200 == 0:
+                    print(f"transcode {i}/{nb}")
+        f.seek(0)
+        f.write(magic)
+        f.write(np.asarray([nb * POINTS_PER_WORKGROUP, nb, max_gw],
+                           np.int64).tobytes())
+        for k in ("scale", "offset", "las_min", "las_max"):
+            f.write(np.asarray(meta[k], np.float64).tobytes())
+        f.write(sizes.tobytes())
+    return tpc_path

@@ -1,7 +1,9 @@
 // Native preprocessor core: per-batch bitstream packing + stream interleave
-// for the two `.tpc` stream layouts (the 128-lane group interleave of the
-// tbatch codec, with per-round pointers, and the fixed-width fbatch
-// codec).  The port's copy of the two encoders of
+// for the reference `.huffman` layout (the 32-lane warp interleave,
+// phantom-exact) and the two `.tpc` layouts (the 128-lane group interleave
+// of the tbatch codec, with per-round pointers, and the fixed-width fbatch
+// codec); the `.huffman` batch decoder; and the fused `.huffman` -> fbatch
+// transcode of the load-time path.  The port's copy of
 // pcrhpg24_tpu/native/codec_core.cpp; the NumPy implementations in
 // pcrhpg24_tpu_torch/codec/ are the specification, and this library
 // produces byte-identical streams.
@@ -15,6 +17,8 @@
 
 namespace {
 
+constexpr int kLanesPerWarp = 32;
+constexpr int kWarpsPerBatch = 32;
 constexpr int kLanesPerGroup = 128;
 constexpr int kGroupsPerBatch = 8;
 constexpr int kSymsPerLane = 192;
@@ -123,6 +127,177 @@ int encode_native_batch(const int32_t* deltas, const uint32_t* bucket_codes,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Reference-format (.huffman) encoder
+// ---------------------------------------------------------------------------
+// deltas:      1024*192 int32
+// sym_keys:    nsym int32 sorted distinct symbols
+// sym_codes:   nsym uint32 codewords
+// sym_lens:    nsym int32 signed lengths (negative = escape)
+// outputs (caller-allocated, sizes returned):
+//   out_encoding   (cap_enc u32), returns total via *enc_len
+//   out_separate   (cap_sep i32), *sep_len
+//   out_sep_sizes  1024 i32 inclusive prefix
+//   out_cluster    32 i32 inclusive prefix word counts
+int encode_ref_batch(const int32_t* deltas, const int32_t* sym_keys,
+                     const uint32_t* sym_codes, const int32_t* sym_lens,
+                     int64_t nsym, uint32_t* out_encoding, int64_t cap_enc,
+                     int64_t* enc_len, int32_t* out_separate, int64_t cap_sep,
+                     int64_t* sep_len, int32_t* out_sep_sizes,
+                     int32_t* out_cluster) {
+  int64_t enc_cursor = 0, sep_cursor = 0;
+  for (int warp = 0; warp < kWarpsPerBatch; ++warp) {
+    std::vector<std::vector<uint32_t>> words(kLanesPerWarp);
+    std::vector<std::vector<int64_t>> bitcsum(kLanesPerWarp);
+    for (int l = 0; l < kLanesPerWarp; ++l) {
+      int lane = warp * kLanesPerWarp + l;
+      const int32_t* d = deltas + (int64_t)lane * kSymsPerLane;
+      BitPacker bp;
+      int64_t total = 0;
+      bitcsum[l].resize(kSymsPerLane);
+      std::vector<int> lens(kSymsPerLane);
+      for (int i = 0; i < kSymsPerLane; ++i) {
+        // binary search symbol
+        const int32_t* it =
+            std::lower_bound(sym_keys, sym_keys + nsym, d[i]);
+        int64_t idx = it - sym_keys;
+        int sl = sym_lens[idx];
+        lens[i] = sl < 0 ? -sl : sl;
+        total += lens[i];
+        bitcsum[l][i] = total;
+      }
+      bp.reserve_bits(total);
+      int64_t sep_here = 0;
+      for (int i = 0; i < kSymsPerLane; ++i) {
+        const int32_t* it =
+            std::lower_bound(sym_keys, sym_keys + nsym, d[i]);
+        int64_t idx = it - sym_keys;
+        if (sym_lens[idx] < 0) {
+          if (sep_cursor + sep_here >= cap_sep) return -2;
+          out_separate[sep_cursor + sep_here] = d[i];
+          sep_here++;
+        }
+        bp.push(sym_codes[idx], lens[i]);
+      }
+      bp.finish();
+      words[l] = std::move(bp.words);
+      sep_cursor += sep_here;
+      out_sep_sizes[lane] = (int32_t)sep_cursor;
+    }
+    // phantom-exact interleave (warp_interleave.py semantics)
+    struct Req {
+      int key, tid, widx;
+    };
+    std::vector<Req> reqs;
+    for (int l = 0; l < kLanesPerWarp; ++l) {
+      int64_t total = bitcsum[l].back();
+      int64_t n_req = total / 32;
+      int64_t j = 1;
+      int sym = 0;
+      for (; j <= n_req; ++j) {
+        // first symbol index with cumulative bits >= 32*j
+        while (sym < kSymsPerLane && bitcsum[l][sym] < 32 * j) ++sym;
+        reqs.push_back({sym + 1, l, (int)(j + 1)});
+      }
+    }
+    std::stable_sort(reqs.begin(), reqs.end(), [](const Req& a, const Req& b) {
+      if (a.key != b.key) return a.key < b.key;
+      if (a.tid != b.tid) return a.tid < b.tid;
+      return a.widx < b.widx;
+    });
+    // emit: head (w0 per lane, w1 per lane) then requests
+    int64_t warp_words = 0;
+    auto emit = [&](uint32_t w) -> int {
+      if (enc_cursor >= cap_enc) return -1;
+      out_encoding[enc_cursor++] = w;
+      warp_words++;
+      return 0;
+    };
+    for (int l = 0; l < kLanesPerWarp; ++l)
+      if (emit(words[l].size() > 0 ? words[l][0] : 0)) return -3;
+    for (int l = 0; l < kLanesPerWarp; ++l)
+      if (emit(words[l].size() > 1 ? words[l][1] : 0)) return -3;
+    for (auto& r : reqs) {
+      uint32_t w =
+          r.widx < (int)words[r.tid].size() ? words[r.tid][r.widx] : 0;
+      if (emit(w)) return -3;
+    }
+    out_cluster[warp] =
+        (int32_t)(warp == 0 ? warp_words : out_cluster[warp - 1] + warp_words);
+  }
+  *enc_len = enc_cursor;
+  *sep_len = sep_cursor;
+  return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Reference-format (.huffman) batch DECODER
+// ---------------------------------------------------------------------------
+// Mirror of the GPU warp decoder semantics (the same protocol the Python
+// codec/batch_codec.py decode_batch implements): two-word lookahead per
+// lane, ballot-ordered refills, 4096-entry table with negative-length
+// escape entries.
+// encoding:    E u32 warp-interleaved words (batch-local)
+// cluster:     32 i32 inclusive prefix word counts (warp stream ends)
+// separate:    S i32 escape values
+// sep_sizes:   1024 i32 inclusive prefix escape counts
+// tval/tlen:   4096 i32 decoder table
+// out_deltas:  1024*192 i32
+int decode_ref_batch(const uint32_t* encoding, int64_t e_len,
+                     const int32_t* cluster, const int32_t* separate,
+                     const int32_t* sep_sizes, const int32_t* tval,
+                     const int32_t* tlen, int32_t* out_deltas) {
+  const int kMaxCw = 12;
+  for (int warp = 0; warp < kWarpsPerBatch; ++warp) {
+    int64_t base = warp == 0 ? 0 : cluster[warp - 1];
+    auto word = [&](int64_t i) -> uint32_t {
+      int64_t idx = base + i;
+      return idx < e_len ? encoding[idx] : 0u;
+    };
+    uint32_t cur[kLanesPerWarp], nxt[kLanesPerWarp];
+    int cur_bits[kLanesPerWarp];
+    int64_t sep_ptr[kLanesPerWarp];
+    for (int l = 0; l < kLanesPerWarp; ++l) {
+      cur[l] = word(l);
+      nxt[l] = word(kLanesPerWarp + l);
+      cur_bits[l] = 32;
+      int lane = warp * kLanesPerWarp + l;
+      sep_ptr[l] = lane == 0 ? 0 : sep_sizes[lane - 1];
+    }
+    int64_t already = 2 * kLanesPerWarp;
+    for (int i = 0; i < kSymsPerLane; ++i) {
+      bool need[kLanesPerWarp];
+      for (int l = 0; l < kLanesPerWarp; ++l) {
+        uint32_t L = cur_bits[l] == 32 ? cur[l]
+                                       : (cur[l] << (32 - cur_bits[l]));
+        uint32_t R = cur_bits[l] == 32 ? 0u : (nxt[l] >> cur_bits[l]);
+        uint32_t key = (L | R) >> (32 - kMaxCw);
+        int sl = tlen[key];
+        int lane = warp * kLanesPerWarp + l;
+        int32_t sym = sl > 0 ? tval[key] : separate[sep_ptr[l]++];
+        out_deltas[(int64_t)lane * kSymsPerLane + i] = sym;
+        cur_bits[l] -= sl < 0 ? -sl : sl;
+        need[l] = cur_bits[l] <= 0;
+      }
+      int64_t offs = 0;
+      for (int l = 0; l < kLanesPerWarp; ++l) {
+        if (need[l]) {
+          cur[l] = nxt[l];
+          nxt[l] = word(already + offs);
+          cur_bits[l] += 32;
+          offs++;
+        }
+      }
+      already += offs;
+    }
+  }
+  return 0;
+}
+
 }  // extern "C"
 
 extern "C" {
@@ -205,6 +380,54 @@ int encode_fixed_batch(const int32_t* deltas, uint8_t* out_widths,
   }
   *out_nwords = ptr;
   return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Fused reference-batch -> fbatch transcode (the load-time fast path)
+// ---------------------------------------------------------------------------
+// Decodes one reference `.huffman` batch, computes the integer bbox, and
+// re-encodes in the fixed-width TPU layout, all in one call — one
+// thread-pool task per batch at load time, no intermediate NumPy passes
+// (reference ingest analogue: modules/compute/HuffmanLasLoader.cpp:176-299
+// uploads its format directly; the TPU path re-lays the bits out for the
+// Pallas decoder's uniform refill rounds instead).
+// start_values: 1024*3 int32; out_bbox: 6 int32 (min xyz, max xyz).
+int transcode_ref_batch(const uint32_t* encoding, int64_t e_len,
+                        const int32_t* cluster, const int32_t* separate,
+                        const int32_t* sep_sizes, const int32_t* tval,
+                        const int32_t* tlen, const int32_t* start_values,
+                        uint8_t* out_widths, uint32_t* out_stream,
+                        int64_t* out_nwords, int32_t* out_ptrs,
+                        int32_t* out_bbox, int64_t maxw) {
+  std::vector<int32_t> deltas((size_t)kLanes * kSymsPerLane);
+  int rc = decode_ref_batch(encoding, e_len, cluster, separate, sep_sizes,
+                            tval, tlen, deltas.data());
+  if (rc) return rc;
+  int32_t mn[3] = {INT32_MAX, INT32_MAX, INT32_MAX};
+  int32_t mx[3] = {INT32_MIN, INT32_MIN, INT32_MIN};
+  for (int l = 0; l < kLanes; ++l) {
+    // delta[0] == 0, so the start value itself enters the minmax
+    int32_t cur[3] = {start_values[l * 3], start_values[l * 3 + 1],
+                      start_values[l * 3 + 2]};
+    const int32_t* d = deltas.data() + (size_t)l * kSymsPerLane;
+    for (int i = 0; i < kSymsPerLane; i += 3) {
+      for (int c = 0; c < 3; ++c) {
+        cur[c] = int32_t(uint32_t(cur[c]) + uint32_t(d[i + c]));
+        if (cur[c] < mn[c]) mn[c] = cur[c];
+        if (cur[c] > mx[c]) mx[c] = cur[c];
+      }
+    }
+  }
+  for (int c = 0; c < 3; ++c) {
+    out_bbox[c] = mn[c];
+    out_bbox[3 + c] = mx[c];
+  }
+  return encode_fixed_batch(deltas.data(), out_widths, out_stream,
+                            out_nwords, out_ptrs, maxw);
 }
 
 }  // extern "C"

@@ -1,28 +1,129 @@
-"""LAS -> `.tpc` preprocessor.
+"""LAS -> `.huffman` or `.tpc` preprocessor.
 
-The port's copy of `preprocess_las_tpc` from `pcrhpg24_tpu/preprocess.py`
-(:123-187): read LAS records per chunk of up to MAX_POINTS_PER_BATCH
-points, pad the tail batch by repeating the last point, Morton-sort,
-split into 65 536-point batches, encode each batch's geometry (fbatch
-`.tpc` v2 or tbatch v1) and BC1 colours, and write the file.  Raw and
-BC7 colours are ROADMAP A11, the `.huffman` writer A7.
+The port's copy of `pcrhpg24_tpu/preprocess.py`: read LAS records per
+chunk of up to MAX_POINTS_PER_BATCH points, pad the tail batch by
+repeating the last point, Morton-sort, split into 65 536-point batches,
+encode each batch's geometry and BC1 colours, and write the file.  The
+output's extension picks the format: `.huffman` (the reference's own,
+`preprocess_las`: per-batch delta + clipped-Huffman streams in warp
+order) or `.tpc` (`preprocess_las_tpc`: fbatch v2, or tbatch v1 with
+the 4th argument `huffman`).  Raw and BC7 colours are ROADMAP A11.
 
-Usage: python -m pcrhpg24_tpu_torch.preprocess input.las out.tpc [sort 0|1] [fixed|huffman]
+Usage: python -m pcrhpg24_tpu_torch.preprocess input.las out.huffman|out.tpc [sort 0|1] [fixed|huffman]
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 
+from .codec.batch_codec import encode_batch
 from .codec.bc1 import encode_bc1
 from .codec.fixed import encode_fixed_batch
 from .codec.morton import morton_order
 from .codec.native import encode_native_batch
-from .constants import MAX_POINTS_PER_BATCH, POINTS_PER_WORKGROUP, WORKGROUP_SIZE
+from .constants import (
+    CLUSTERS_PER_THREAD,
+    MAX_POINTS_PER_BATCH,
+    POINTS_PER_THREAD,
+    POINTS_PER_WORKGROUP,
+    WORKGROUP_SIZE,
+)
+from .formats.huffman_file import BatchDump, write_huffman_file
 from .formats.las import read_header, read_points
 from .formats.native_file import write_tpc
+
+
+def preprocess_chunk(x, y, z, color, las_header, point_offset, sort=True):
+    """Encode one chunk into BatchDump list; pads to a batch multiple."""
+    n = len(x)
+    pad = (-n) % POINTS_PER_WORKGROUP
+    if pad:
+        x = np.concatenate([x, np.full(pad, x[-1], x.dtype)])
+        y = np.concatenate([y, np.full(pad, y[-1], y.dtype)])
+        z = np.concatenate([z, np.full(pad, z[-1], z.dtype)])
+        color = np.concatenate([color, np.full(pad, color[-1], color.dtype)])
+        n += pad
+
+    if sort:
+        order = morton_order(x, y, z)
+        x, y, z, color = x[order], y[order], z[order], color[order]
+
+    h = las_header
+    batches = []
+    for start in range(0, n, POINTS_PER_WORKGROUP):
+        sl = slice(start, start + POINTS_PER_WORKGROUP)
+        eb = encode_batch(x[sl], y[sl], z[sl])
+        col = encode_bc1(color[sl])
+        # world-space bbox: float32(int) * scale + offset (preprocess.cpp:1082-1087)
+        bmin = (
+            eb.bbox_min_i.astype(np.float32).astype(np.float64) * h.scale + h.offset
+        ).astype(np.float32)
+        bmax = (
+            eb.bbox_max_i.astype(np.float32).astype(np.float64) * h.scale + h.offset
+        ).astype(np.float32)
+        batches.append(
+            BatchDump(
+                point_offset=point_offset + start,
+                num_points=POINTS_PER_WORKGROUP,
+                num_threads=WORKGROUP_SIZE,
+                points_per_thread=POINTS_PER_THREAD,
+                clusters_per_thread=CLUSTERS_PER_THREAD,
+                las_scale=h.scale,
+                las_offset=h.offset,
+                bbox_min=bmin,
+                bbox_max=bmax,
+                las_min=h.cmin.astype(np.float32),
+                las_max=h.cmax.astype(np.float32),
+                start_values=eb.start_values,
+                separate_sizes=eb.separate_sizes,
+                decoder_values=eb.decoder_values,
+                decoder_cw_len=eb.decoder_cw_len,
+                cluster_sizes=eb.cluster_sizes,
+                encoding=eb.encoding,
+                separate=eb.separate,
+                color=col,
+            )
+        )
+    return batches
+
+
+def preprocess_las(las_path: str, out_path: str, sort: bool = True, verbose=True):
+    header = read_header(las_path)
+    n_total = header.num_points
+    batches: list[BatchDump] = []
+    point_offset = 0
+    t0 = time.time()
+    for start in range(0, n_total, MAX_POINTS_PER_BATCH):
+        count = min(MAX_POINTS_PER_BATCH, n_total - start)
+        pts = read_points(las_path, start, count)
+        chunk = preprocess_chunk(
+            pts.x, pts.y, pts.z, pts.color, header, point_offset, sort
+        )
+        batches.extend(chunk)
+        point_offset += sum(b.num_points for b in chunk)
+        if verbose:
+            print(f"chunk {start // MAX_POINTS_PER_BATCH}: {len(chunk)} batches, "
+                  f"{time.time() - t0:.1f}s elapsed")
+    write_huffman_file(out_path, batches)
+
+    if verbose:
+        ng_old = 12.0 * point_offset
+        ng_new = sum(
+            4 * (len(b.encoding) + len(b.separate) + len(b.decoder_values) * 2
+                 + len(b.cluster_sizes)) + 12 * WORKGROUP_SIZE + 4 * WORKGROUP_SIZE
+            for b in batches
+        )
+        nc_old = 3.0 * point_offset
+        nc_new = sum(4 * len(b.color) for b in batches)
+        print(f"Number of Points: {point_offset}")
+        print(f"Number of Batches: {len(batches)}")
+        print(f"Geometry Compression Ratio: {ng_old / ng_new:.3f}")
+        print(f"Color Compression Ratio: {nc_old / nc_new:.3f}")
+        print(f"Total Compression Ratio: {(ng_old + nc_old) / (ng_new + nc_new):.3f}")
+    return out_path
 
 
 def preprocess_las_tpc(las_path: str, out_path: str, sort: bool = True,
@@ -81,9 +182,13 @@ def main(argv=None):
     if len(argv) < 2:
         print(__doc__)
         return 1
+    las_path, out_path = argv[0], argv[1]
     sort = bool(int(argv[2])) if len(argv) > 2 else True
-    codec = argv[3] if len(argv) > 3 else "fixed"
-    preprocess_las_tpc(argv[0], argv[1], sort, codec=codec)
+    if out_path.endswith(".tpc"):
+        codec = argv[3] if len(argv) > 3 else "fixed"
+        preprocess_las_tpc(las_path, out_path, sort, codec=codec)
+    else:
+        preprocess_las(las_path, out_path, sort)
     return 0
 
 

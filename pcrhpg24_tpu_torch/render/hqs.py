@@ -28,6 +28,7 @@ import torch
 
 from ..kernels.build import I, L, P, Kernel, check_cuda, part_groups
 from ..u32 import widen
+from .raster import BACKGROUND
 
 HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, I, P, P, I])
 HQS_SORTED = Kernel("pcr_hqs_sorted", [P, P, P, P, P, L, I])
@@ -55,6 +56,18 @@ def hqs_sums_plain(parts, fb_depth, size: int):
             planes[k].index_add_(0, idx, v)
     out = planes[:, :size].to(torch.int32)  # wraps mod 2**32, as u32 sums do
     return tuple(out[k] for k in range(4))
+
+
+def resolve_hqs(acc_r, acc_g, acc_b, acc_n, width: int, height: int):
+    """(H, W) int32 image of the averaged colours (resolve.cu:29-41):
+    unsigned divides of the linear (H*W,) planes, the background where
+    no point was accepted.  A wrapped u32 sum is negative as int32, so
+    the planes are widened first."""
+    n = torch.clamp(widen(acc_n), min=1)
+    color = ((widen(acc_r) // n) | ((widen(acc_g) // n) << 8)
+             | ((widen(acc_b) // n) << 16)).to(torch.int32)
+    img = torch.where(acc_n != 0, color, torch.full_like(color, BACKGROUND))
+    return img.reshape(height, width)
 
 
 def _launch_sums(kernel: Kernel, parts, fb_depth, size: int):

@@ -33,9 +33,7 @@ from ..raster import (
     u64_min_planes_plain,
     unswizzle_plane,
 )
-from .base import HuffmanMemIterHost
-
-CHUNK = 64  # batches per decode + project pass (4.2M points)
+from .huffman_mem_iter import CHUNK, HuffmanMemIter
 
 
 def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
@@ -107,7 +105,7 @@ def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
     return fb_p, resolve(fb_p, width, height)
 
 
-class HuffmanTpu(HuffmanMemIterHost):
+class HuffmanTpu(HuffmanMemIter):
     """Flagship native-format method ((B1 or B5) -> B2 -> B3)."""
 
     def __init__(self, renderer, tpc):

@@ -17,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from ...constants import POINTS_PER_THREAD
-from ...u32 import widen
-from ..hqs import hqs_sums, hqs_sums_plain
+from ..hqs import hqs_sums, hqs_sums_plain, resolve_hqs
 from ..raster import BACKGROUND, EMPTY, u64_min_planes, u64_min_planes_plain, unswizzle_plane
 from .huffman_tpu import HuffmanTpu, frame_streams
 
@@ -45,13 +44,9 @@ def hqs_frame_native(dev, frame_params, tb, scale, width: int, height: int,
         fb_d = torch.full((size,), EMPTY, dtype=torch.int32, device=device)
         acc = tuple(torch.zeros((size,), dtype=torch.int32, device=device)
                     for _ in range(4))
-    acc_r, acc_g, acc_b, acc_n = (unswizzle_plane(a, width, height) for a in acc)
-    # unsigned divides: a wrapped u32 sum is negative as int32
-    n = torch.clamp(widen(acc_n), min=1)
-    color = ((widen(acc_r) // n) | ((widen(acc_g) // n) << 8)
-             | ((widen(acc_b) // n) << 16)).to(torch.int32)
-    img = torch.where(acc_n != 0, color, torch.full_like(color, BACKGROUND))
-    return unswizzle_plane(fb_d, width, height), acc_n, img.reshape(height, width)
+    acc = [unswizzle_plane(a, width, height) for a in acc]
+    return (unswizzle_plane(fb_d, width, height), acc[3],
+            resolve_hqs(*acc, width, height))
 
 
 class HuffmanTpuHqs(HuffmanTpu):

@@ -42,6 +42,17 @@ that only they reach stay EMPTY); sentinel pids; depths falling or
 rising along the stream, so a compare before the atomic skips none or
 nearly all; and a ragged length.
 
+`huffman_batches` builds `.huffman` batches for B12, encoded by the
+port's codec (`batch_codec.encode_streams`) from crafted deltas, in the
+flat layout of the decoder's inputs: escape-heavy batches (a large
+`separate`: most symbols' codes are longer than 12 bits); all codewords
+12 bits long; every lane's stream a whole number of words; a
+one-symbol table (1-bit codes, so the window is a whole word every 32
+symbols, the `cur_bits == 32` path); the buffer's last batch cut short,
+so its refills read past the end of `encoding` (the zero pad, then the
+clip); and no escapes at all, with `separate` empty, but table entries
+of length 0 and -3, so lanes still read the empty `separate`.
+
 `tile_keys` builds (T, 8, 128) int32 key planes for B10's per-tile sort:
 tiles of one triple, tiles already sorted and sorted in reverse, k0 and
 k1 tied so that k2 decides, keys drawn from INT32_MIN, INT32_MAX and the
@@ -60,6 +71,8 @@ OFF_SCREEN, BEHIND = -1, -2  # spot ids of the two clipping spots
 HQS_KINDS = ("one_pid", "alternating", "sentinel", "empty_depth", "mixed")
 RESOLVE_KINDS = ("one_pid", "alternating", "ties", "all_ones", "sentinel", "descending",
                  "ascending", "ragged")
+HUFFMAN_KINDS = ("escapes", "cw12", "boundary", "one_symbol", "last_batch",
+                 "empty_separate")
 TILE_KINDS = ("equal", "sorted", "reverse", "k2_decides", "extremes", "repeats", "sentinel")
 # the pid of an HQS entry that lands nowhere at 1920x1080: the swizzled
 # id space's size, 60 x 34 tiles of 32 x 32 pixels (`raster.swizzle_dims`)
@@ -304,3 +317,51 @@ def tile_keys(kind: str, tiles: int, seed: int = 0):
         dep = (1 + rng.random(shape) * 100).astype(np.float32).view(np.int32)
         keys = [pid, dep, rng.integers(0, 2**24, shape)]
     return tuple(k.astype(np.int32).reshape(tiles, GROUPS, LANES) for k in keys)
+
+
+def _huffman_deltas(kind: str, rng) -> np.ndarray:
+    """(1024, 192) i32 interleaved deltas of one batch of `kind`."""
+    shape = (CHAINS, 192)
+    if kind == "escapes":  # 20,000 rare values beside a few common ones
+        rare = rng.integers(-(2**31), 2**31, 20000)
+        d = np.where(rng.random(shape) < 0.8, rng.choice(rare, shape),
+                     rng.integers(-3, 4, shape))
+    elif kind == "cw12":  # 4096 values 48 times each: every code 12 bits
+        d = rng.permutation(np.repeat(np.arange(-2048, 2048), 48)).reshape(shape)
+    elif kind == "boundary":  # 16 values 12,288 times each: 4-bit codes
+        d = rng.permutation(np.repeat(np.arange(16) * 1000 - 7000, 12288)).reshape(shape)
+    elif kind == "one_symbol":
+        d = np.full(shape, 7)
+    else:  # "last_batch", "empty_separate": 81 values, no escapes
+        d = rng.integers(-40, 41, shape)
+    return d.astype(np.int32)
+
+
+def huffman_batches(kind: str, batches: int = 2, seed: int = 0) -> dict:
+    """-> dict of the decoder's flat inputs (`decode_ref_plain`'s names;
+    `encoding` u32, the rest i32) for `batches` batches of `kind`
+    (`HUFFMAN_KINDS`, module doc)."""
+    from ..codec.batch_codec import encode_streams
+
+    rng = np.random.default_rng(seed)
+    parts = [encode_streams(_huffman_deltas(kind, rng)) for _ in range(batches)]
+    enc = [p[0] for p in parts]
+    sep = [p[1] for p in parts]
+    out = dict(
+        encoding=np.concatenate(enc).astype(np.uint32),
+        enc_offsets=np.cumsum([0] + [len(e) for e in enc[:-1]]).astype(np.int32),
+        cluster_sizes=np.stack([p[3] for p in parts]).astype(np.int32),
+        separate=np.concatenate(sep).astype(np.int32),
+        sep_offsets=np.cumsum([0] + [len(x) for x in sep[:-1]]).astype(np.int32),
+        separate_sizes=np.stack([p[2] for p in parts]).astype(np.int32),
+        table_values=np.stack([p[4] for p in parts]).astype(np.int32),
+        table_cw_len=np.stack([p[5] for p in parts]).astype(np.int32),
+        start_values=rng.integers(-(2**31), 2**31, (batches, CHAINS, 3)).astype(np.int32),
+    )
+    if kind == "last_batch":  # the last 200 words of the buffer are gone
+        out["encoding"] = out["encoding"][:-200]
+    if kind == "empty_separate":
+        tl = out["table_cw_len"]
+        tl[:, 5::97] = 0
+        tl[:, 11::89] = -3
+    return out

@@ -119,13 +119,14 @@ def test_kernel_source_hash_tracks_sources():
 
     srcs = {p.name for p in build.sources()}
     assert {"decode_fixed.cu", "project.cu", "raster.cu", "hqs.cu",
-            "decode_native.cu", "merge.cu", "tile_sort.cu"} <= srcs
+            "decode_native.cu", "merge.cu", "tile_sort.cu", "decode_huffman.cu"} <= srcs
     assert len(build.source_hash()) == 16
     assert "-fmad=false" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
     assert set(build.KERNELS) >= {"pcr_decode_fixed", "pcr_project", "pcr_u64_min",
                                   "pcr_hqs_sums", "pcr_decode_native", "pcr_merge_nk1",
-                                  "pcr_merge_heads", "pcr_hqs_sorted", "pcr_tile_sort3"}
+                                  "pcr_merge_heads", "pcr_hqs_sorted", "pcr_tile_sort3",
+                                  "pcr_decode_huffman"}
 
 
 def test_cpu_tensors_never_launch():
@@ -140,7 +141,7 @@ def test_cpu_tensors_never_launch():
 
 
 @pytest.mark.parametrize("scene,item", [
-    ("x.huffman", "A7"), ("x.las", "A11"), ("x.laz", "A11"),
+    ("x.las", "A11"), ("x.laz", "A11"),
     ("a.las,b.las", "A11"), ("tiles/*.las", "A11"), ("potree_dir", "A10"),
 ])
 def test_unported_scene_kinds_name_their_roadmap_item(scene, item):
