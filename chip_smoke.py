@@ -61,8 +61,12 @@ Phases, each of which exits non-zero on failure:
     (`crafted.huffman_batches`: escape-heavy, all codewords 12 bits,
     every lane's stream whole words, a one-symbol table, the buffer's
     last batch cut short so refills read past its end, an empty
-    `separate` read by escapes of length 0 and -3) at points 64, 48,
-    32, 16 and 40;
+    `separate` read by escapes of length 0 and -3; and for its staging
+    in shared memory, warps and lanes of one batch from 1-bit codes to
+    escapes only, one all-escape lane per warp, warp streams at every
+    word offset mod 4 in buffers of ragged length, understated
+    `cluster_sizes`, and table lengths outside [-12, 12], which take
+    its checked steps) at points 64, 48, 32, 16 and 40;
  5. main paths at 1920x1080, each view 2 warm + 10 timed frames, with
     every kernel's launch count reset just before and read just after:
     through `pcrhpg24_tpu_torch.app`, `huffman_tpu` on v2 (B1, B2, B3),
@@ -93,6 +97,11 @@ Phases, each of which exits non-zero on failure:
     work alone; for B3 and B6 `kernel_device_ms` is one launch of the
     kernel alone into a plane filled before the spin.  B8, B9 and B10
     are reached by no method of the reference: their launches are 0.
+    B12's resources: registers, shared memory per block, blocks and
+    warps resident per SM, blocks per chunk and per SM; and the timed
+    chunk's streams: words per warp stream, refills per lane, escapes
+    per lane and per warp run, and the runs over the kernel's staging
+    cap.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -405,7 +414,8 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.formats.huffman_file import read_batch, read_file_header
     from pcrhpg24_tpu_torch.render.decode_fixed import (
         decode_fixed_batches, decode_fixed_plain, pack_fixed_batches)
-    from pcrhpg24_tpu_torch.render.decode_huffman import decode_ref_batches, decode_ref_plain
+    from pcrhpg24_tpu_torch.render.decode_huffman import (
+        PTS, decode_ref_batches, decode_ref_plain, kernel_resources)
     from pcrhpg24_tpu_torch.render.decode_tbatch import (
         decode_native_batches, decode_native_plain, pack_native_batches)
     from pcrhpg24_tpu_torch.render.hqs import (
@@ -592,17 +602,31 @@ def main(argv=None) -> int:
     print(f"[gate] {KERNEL_INFO['pcr_decode_huffman'][0]}: bit-exact vs its plain version "
           f"(64 batches), the plain version on the CPU (4 batches) and the C++ "
           f".huffman decoder (batches {sorted(huf_batches)}) at points 64 and 32")
+    # each crafted kind also with `encoding` and `separate` as views 1, 2
+    # and 3 words into their storage: buffers that start off a 16-byte
+    # boundary, so the kernel's staging windows round outwards around the
+    # buffer's own start (its first words come from device memory)
+    def shifted(x, by):
+        buf = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
+        buf[by:] = x
+        return buf[by:]
     for kind in crafted.HUFFMAN_KINDS:
         ch = crafted.huffman_batches(kind, seed=5)
         cin = [(from_u32(ch[k]) if k == "encoding" else torch.from_numpy(ch[k])).to(DEVICE)
                for k in REF_KEYS]
+        views = [cin] + [[shifted(x, by) if k in WHOLE_BUFFERS else x
+                          for k, x in zip(REF_KEYS, cin)] for by in (1, 2, 3)]
         for pts in (64, 48, 32, 16, 40):
-            e = max_abs_err(decode_ref_batches(*cin, points=pts),
-                            decode_ref_plain(*cin, points=pts))
-            check(e == 0, f"pcr_decode_huffman != plain on crafted {kind!r} batches at "
-                          f"points={pts} (max err {e})")
+            want = decode_ref_plain(*cin, points=pts)
+            for by, vin in enumerate(views):
+                check(vin[0].data_ptr() % 16 == 4 * by, "a crafted view's offset")
+                e = max_abs_err(decode_ref_batches(*vin, points=pts), want)
+                check(e == 0, f"pcr_decode_huffman != plain on crafted {kind!r} batches at "
+                              f"points={pts}, buffers {by} words into their storage "
+                              f"(max err {e})")
         print(f"[gate] crafted {KERNEL_INFO['pcr_decode_huffman'][0]} {kind!r}: bit-exact "
-              f"vs its plain version at points 64, 48, 32, 16 and 40 "
+              f"vs its plain version at points 64, 48, 32, 16 and 40, with the buffers "
+              f"0-3 words into their storage "
               f"({ch['encoding'].size:,} words, {ch['separate'].size:,} escapes)")
     del cin, got, want, cpu
 
@@ -1179,6 +1203,39 @@ def main(argv=None) -> int:
               f"{kern_alone}) vs "
               f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{bound_bytes[s]:,} B), library {lib} ({at}); {reach} [{card}]")
+    # B12's resources, and its chunk's blocks spread evenly over the SMs
+    res = kernel_resources()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = CHUNK * res["blocks_per_batch"]
+    per_sm, more = divmod(blocks, sms)
+    check(blocks <= sms * res["blocks_per_sm"],
+          f"pcr_decode_huffman: {blocks} blocks a chunk exceed what {sms} SMs hold at once")
+    print(f"[b12] resources, {res['threads'] // 32}-warp blocks: {res['registers']} registers "
+          f"a thread, {res['shared_bytes']:,} B shared memory a block, up to "
+          f"{res['blocks_per_sm']} blocks ({res['blocks_per_sm'] * res['threads'] // 32} "
+          f"warps) resident per SM; {blocks} blocks per {CHUNK}-batch chunk on {sms} SMs: "
+          f"{more} SMs hold {per_sm + 1} blocks, {sms - more} hold {per_sm}")
+    # the streams B12 decodes (the scene's data, no device time): words
+    # per warp stream, escapes per lane and per warp run, and the runs
+    # that, with the 3 x points escapes a lane may read past its own,
+    # overflow the staged run (those warps take the checked steps)
+    def per_unit(inclusive):
+        x = inclusive.to(torch.int64)
+        return torch.diff(x, dim=1, prepend=torch.zeros_like(x[:, :1]))
+    words = per_unit(hd["cluster_sizes"][sl])
+    lane_esc = per_unit(hd["separate_sizes"][sl])
+    run = lane_esc.reshape(-1, 32, 32).sum(2)
+    syms = lane_esc.numel() * 3 * PTS
+    print(f"[b12] streams of the .huffman scene's first {CHUNK} batches: "
+          f"{words.sum(1).float().mean().item():,.0f} words a batch, "
+          f"{words.min().item():,}-{words.max().item():,} a warp stream (the format's "
+          f"most: 2,368), {(words.sum() / (32 * words.numel())).item() - 2:.1f} refills a "
+          f"lane on average; escapes {lane_esc.sum().item():,} "
+          f"({100 * lane_esc.sum().item() / syms:.1f}% of {syms:,} symbols), "
+          f"{lane_esc.float().mean().item():.1f} a lane on average, at most "
+          f"{lane_esc.max().item()}; a warp's run {run.float().mean().item():,.0f} on "
+          f"average, at most {run.max().item():,}; {int((run + 3 * PTS + 3 > res['escape_cap']).sum())} "
+          f"of {run.numel():,} runs over the {res['escape_cap']:,}-int staging cap")
     # B4's planes as strided views of its (size, 4) sums (the wrapper's
     # choice) against a contiguous split, each through the consumer's
     # unswizzle, as `hqs_frame_native` reads them (device time)

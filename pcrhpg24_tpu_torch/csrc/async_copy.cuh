@@ -49,6 +49,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Orders the calling thread's (and, after a warp or block barrier, its
+// peers') earlier shared-memory accesses before its later bulk copies:
+// a slot that was read is refilled only after this.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
@@ -89,7 +96,9 @@ __device__ __forceinline__ uint32_t load_global(const uint32_t* p) {
 // thread copies chunk j into slot j % kStages once every consumer thread
 // has released chunk j - kStages (the usual TMA pipeline).  Chunk j
 // completes phase j / kStages of its slot's barriers, so a wait needs no
-// per-slot state beyond the chunk number.
+// per-slot state beyond the chunk number.  A warp that copies its own
+// chunks, and so knows when a slot is free (B12), uses the slots and the
+// full barriers alone (`slot`, `full_of`, `wait_full`, `word`).
 template <int kChunkLog2_, int kStages_>
 struct Ring {
   static constexpr int kChunkLog2 = kChunkLog2_;
@@ -109,14 +118,19 @@ struct Ring {
     }
   }
 
+  // chunk j's slot, and the barrier its copy completes on
+  __device__ __forceinline__ uint32_t* slot(int j) { return buf + (j & (kStages - 1)) * kChunk; }
+  __device__ __forceinline__ uint64_t* full_of(int j) { return &full[j & (kStages - 1)]; }
+  // Returns once chunk j has landed.
+  __device__ __forceinline__ void wait_full(int j) { wait(full_of(j), (j / kStages) & 1); }
+
   // The producer thread: chunks [first, n) in order; copy(j, dst, bar)
   // announces chunk j's bytes on bar and issues its bulk copies into dst.
   template <class Copy>
   __device__ __forceinline__ void produce(int first, int n, Copy copy) {
     for (int j = first; j < n; ++j) {
-      const int slot = j & (kStages - 1);
-      if (j >= kStages) wait(&empty[slot], (j / kStages - 1) & 1);
-      copy(j, buf + slot * kChunk, &full[slot]);
+      if (j >= kStages) wait(&empty[j & (kStages - 1)], (j / kStages - 1) & 1);
+      copy(j, slot(j), full_of(j));
     }
   }
 
@@ -132,13 +146,10 @@ struct Reader {
   int ready = 0;     // chunks [0, ready) seen complete
   int released = 0;  // chunks [0, released) given back to the producer
 
-  __device__ __forceinline__ void wait_full(int j) {
-    wait(&r.full[j & (R::kStages - 1)], (j / R::kStages) & 1);
-  }
   // Gives back chunk `released`, after seeing it land.
   __device__ __forceinline__ void release_one() {
     if (ready <= released) {
-      wait_full(released);
+      r.wait_full(released);
       ready = released + 1;
     }
     arrive(&r.empty[released & (R::kStages - 1)]);
@@ -151,7 +162,7 @@ struct Reader {
     if (lo_c < released || hi_c - lo_c >= R::kStages) return false;
     while (released < lo_c) release_one();
     while (ready <= hi_c) {
-      wait_full(ready);
+      r.wait_full(ready);
       ++ready;
     }
     return true;

@@ -14,8 +14,12 @@ the warp's count.  Symbols are the x y z deltas of the chain's points.
 
 `decode_ref_plain` mirrors `decode_batches_core` op for op in torch
 (u32 words as int64 values, `u32.widen`); `decode_ref_batches` launches
-the CUDA kernel (`csrc/decode_huffman.cu`).  Both write B1's output
-layout, (B, points, 3, 8, 128) int32 absolute coordinates with chain
+the CUDA kernel (`csrc/decode_huffman.cu`): blocks of 8 warps, four per
+batch, each warp streaming its words through a ring in shared memory and
+reading its escapes from a staged copy, so that no symbol waits on
+device memory and a 64-batch chunk's 256 blocks are resident on every
+SM at once.  Both write B1's output layout, (B, points, 3, 8, 128)
+int32 absolute coordinates with chain
 c = warp * 32 + lane at (c // 128, c % 128), so that B2 reads them
 unchanged, and both decode only the first `points` points of each chain
 (the static LOD bucket): the decode is sequential per chain, so that
@@ -29,6 +33,8 @@ every index into the padded array.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..constants import (
@@ -40,7 +46,7 @@ from ..constants import (
     WARPS_PER_BATCH,
     WORKGROUP_SIZE,
 )
-from ..kernels.build import I, L, P, Kernel, check_cuda
+from ..kernels.build import I, L, P, Kernel, check_cuda, load
 from ..u32 import MASK32, widen
 
 G = TPU_GROUPS_PER_BATCH  # 8
@@ -131,7 +137,11 @@ def decode_ref_batches(encoding, enc_offsets, cluster_sizes, separate, sep_offse
     `encoding` and `separate` are the whole flat buffers; the per-batch
     arrays are the rows of the batches to decode.  The kernel loads each
     table row with 16-byte loads, so the tables must start 16-byte
-    aligned.
+    aligned.  It stages each warp's words and escapes in shared memory
+    with bulk copies of whole 16-byte blocks of the buffers (rounded
+    outwards from the warp's run, inside the buffer); every index outside
+    what it staged reads device memory with the clip above, so the
+    output never depends on the staging or the buffers' alignment.
     """
     if not encoding.is_cuda:
         return decode_ref_plain(encoding, enc_offsets, cluster_sizes, separate,
@@ -162,3 +172,19 @@ def decode_ref_batches(encoding, enc_offsets, cluster_sizes, separate, sep_offse
             table_values.data_ptr(), table_cw_len.data_ptr(),
             start_values.data_ptr(), out.data_ptr(), B, points)
     return out
+
+
+def kernel_resources() -> dict:
+    """The kernel's resources on the card: registers per thread, shared
+    bytes per block, blocks resident per SM (the occupancy API), threads
+    per block, blocks per batch and the escapes a warp stages at most."""
+    vals = (ctypes.c_int * 6)()
+    fn = load().pcr_decode_huffman_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    err = fn(ctypes.addressof(vals))
+    if err != 0:
+        raise RuntimeError(f"pcr_decode_huffman_info: CUDA error {err}")
+    keys = ("registers", "shared_bytes", "blocks_per_sm", "threads", "blocks_per_batch",
+            "escape_cap")
+    return dict(zip(keys, vals))

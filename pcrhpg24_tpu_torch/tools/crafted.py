@@ -51,7 +51,19 @@ one-symbol table (1-bit codes, so the window is a whole word every 32
 symbols, the `cur_bits == 32` path); the buffer's last batch cut short,
 so its refills read past the end of `encoding` (the zero pad, then the
 clip); and no escapes at all, with `separate` empty, but table entries
-of length 0 and -3, so lanes still read the empty `separate`.
+of length 0 and -3, so lanes still read the empty `separate`.  For
+B12's staging: warps and lanes of one batch at very different rates
+(`uneven`: a warp of 1-bit codes, 6 words a lane, a warp of escapes
+only, the format's longest stream, and lanes of both kinds and of ~10-bit
+codes mixed in the others); one lane per warp whose 192 symbols all
+escape while its neighbours have none (`escape_lane`); four batches
+whose warp streams start at every word offset mod 4, with `encoding` and
+`separate` lengths that are not multiples of 4 (`unaligned`);
+`cluster_sizes` 40 words per warp short of the true counts, so that
+lanes read past the words their warp's count claims (`understated`);
+and table lengths outside the format's [-12, 12] on the entries of the
+most frequent symbol (`wild_lengths`: 13 to 40 bits, literal and
+escape), so that windows run dry by more than a word.
 
 `tile_keys` builds (T, 8, 128) int32 key planes for B10's per-tile sort:
 tiles of one triple, tiles already sorted and sorted in reverse, k0 and
@@ -72,7 +84,8 @@ HQS_KINDS = ("one_pid", "alternating", "sentinel", "empty_depth", "mixed")
 RESOLVE_KINDS = ("one_pid", "alternating", "ties", "all_ones", "sentinel", "descending",
                  "ascending", "ragged")
 HUFFMAN_KINDS = ("escapes", "cw12", "boundary", "one_symbol", "last_batch",
-                 "empty_separate")
+                 "empty_separate", "uneven", "escape_lane", "unaligned", "understated",
+                 "wild_lengths")
 TILE_KINDS = ("equal", "sorted", "reverse", "k2_decides", "extremes", "repeats", "sentinel")
 # the pid of an HQS entry that lands nowhere at 1920x1080: the swizzled
 # id space's size, 60 x 34 tiles of 32 x 32 pixels (`raster.swizzle_dims`)
@@ -332,9 +345,39 @@ def _huffman_deltas(kind: str, rng) -> np.ndarray:
         d = rng.permutation(np.repeat(np.arange(16) * 1000 - 7000, 12288)).reshape(shape)
     elif kind == "one_symbol":
         d = np.full(shape, 7)
-    else:  # "last_batch", "empty_separate": 81 values, no escapes
+    elif kind == "uneven":
+        d = _uneven_deltas(shape, rng)
+    elif kind == "escape_lane":  # lane 5w % 32 of warp w: 192 distinct rare values
+        d = rng.integers(-40, 41, shape)
+        lanes = np.arange(32) * 32 + np.arange(32) * 5 % 32
+        d[lanes] = _distinct_rare(lanes.size * 192, rng).reshape(lanes.size, 192)
+    elif kind == "unaligned":  # lane l's deltas within +-2**(l % 12): lengths vary
+        d = rng.integers(-(2 ** 11), 2 ** 11 + 1, shape) >> (11 - np.arange(CHAINS) % 12)[:, None]
+    else:  # "last_batch", "empty_separate", "understated": 81 values, no escapes
         d = rng.integers(-40, 41, shape)
     return d.astype(np.int32)
+
+
+def _distinct_rare(n: int, rng) -> np.ndarray:
+    """n distinct values far from every common one: each escapes."""
+    return rng.permutation(100_000 + 7 * np.arange(n)) * rng.choice([-1, 1], n)
+
+
+def _uneven_deltas(shape, rng) -> np.ndarray:
+    """Warp 0 all zeros (zero is over half the batch's symbols: a 1-bit
+    code), warp 1 all distinct rare values (escapes), warp 2 256 values
+    (~10-bit codes); in the other warps each lane is one of these or
+    zeros with a few small values, by (lane + 3 warp) % 8."""
+    warp, lane = np.divmod(np.arange(CHAINS), 32)
+    mode = np.array([0, 0, 0, 2, 2, 1, 3, 3])[(lane + 3 * warp) % 8]
+    mode[warp == 0], mode[warp == 1], mode[warp == 2] = 0, 1, 3
+    d = np.zeros(shape, np.int64)
+    small = np.where(rng.random(shape) < 0.9, 0, rng.integers(1, 17, shape))
+    d[mode == 2] = small[mode == 2]
+    d[mode == 3] = rng.integers(-128, 128, shape)[mode == 3]
+    rare = mode == 1
+    d[rare] = _distinct_rare(int(rare.sum()) * shape[1], rng).reshape(-1, shape[1])
+    return d
 
 
 def huffman_batches(kind: str, batches: int = 2, seed: int = 0) -> dict:
@@ -344,6 +387,8 @@ def huffman_batches(kind: str, batches: int = 2, seed: int = 0) -> dict:
     from ..codec.batch_codec import encode_streams
 
     rng = np.random.default_rng(seed)
+    if kind == "unaligned":
+        batches = max(batches, 4)
     parts = [encode_streams(_huffman_deltas(kind, rng)) for _ in range(batches)]
     enc = [p[0] for p in parts]
     sep = [p[1] for p in parts]
@@ -364,4 +409,15 @@ def huffman_batches(kind: str, batches: int = 2, seed: int = 0) -> dict:
         tl = out["table_cw_len"]
         tl[:, 5::97] = 0
         tl[:, 11::89] = -3
+    if kind == "unaligned":  # a ragged tail after the last batch's words
+        for k, dtype in (("encoding", np.uint32), ("separate", np.int32)):
+            if out[k].size % 4 == 0:
+                out[k] = np.append(out[k], dtype(12345))
+    if kind == "understated":
+        out["cluster_sizes"] -= 40 * np.arange(1, 33, dtype=np.int32)
+    if kind == "wild_lengths":  # every 5th entry of the shortest code
+        wild = np.array([13, 20, 31, 32, 33, 40, -13, -20, -33, -40], np.int32)
+        for tl in out["table_cw_len"]:
+            idx = np.flatnonzero(tl == tl[tl > 0].min())[::5]
+            tl[idx] = np.resize(wild, idx.size)
     return out

@@ -11,7 +11,8 @@ JAX package, on the CPU, bit for bit.
   C3: the reference doubles the buffer on any nonzero code, unbounded).
 * `decode_ref_plain` equals `decode_batches_core` on a real file at
   points 64 and 48 and on every crafted kind of `crafted.huffman_batches`
-  (at 64, and its 48-point prefix); the kinds reach their corners; a
+  (at 64, and its 48-point prefix; the last four kinds aim at B12's
+  staging); the kinds reach their corners; a
   CPU tensor takes the plain version and launches nothing.
 """
 
@@ -231,6 +232,30 @@ def test_crafted_kinds_reach_their_corners(crafted_batches):
     empty = c["empty_separate"]
     assert empty["separate"].size == 0
     assert (tl["empty_separate"] == 0).any() and (tl["empty_separate"] == -3).any()
+    # B12's staging corners
+    uneven = c["uneven"]
+    words = _per_unit(uneven["cluster_sizes"])
+    assert (tl["uneven"] == 1).any() and (words[:, 0] == 32 * 6 + 64).all()
+    assert (words[:, 1] == 32 * (72 + 2)).all() and (words.max(1) > 5 * words.min(1)).all()
+    lane_esc = _per_unit(uneven["separate_sizes"])
+    assert (lane_esc[:, 32:64] == 192).all() and (lane_esc == 0).any()
+    lane_esc = _per_unit(c["escape_lane"]["separate_sizes"]).reshape(-1, 32, 32)
+    assert ((lane_esc == 192).sum(2) == 1).all() and ((lane_esc == 0).sum(2) == 31).all()
+    una = c["unaligned"]
+    starts = una["enc_offsets"][:, None] + np.pad(una["cluster_sizes"][:, :-1], ((0, 0), (1, 0)))
+    assert len(una["enc_offsets"]) >= 3 and set((starts % 4).ravel()) == {0, 1, 2, 3}
+    assert una["encoding"].size % 4 and una["separate"].size % 4
+    # the words each batch holds beyond what its counts claim: 40 a warp
+    und = c["understated"]
+    held = np.diff(np.append(und["enc_offsets"], und["encoding"].size))
+    assert (held - und["cluster_sizes"][:, -1] == 40 * 32).all()
+    wild = np.abs(tl["wild_lengths"])
+    assert ((wild > 12).sum(1) > 100).all() and wild.max() == 40
+
+
+def _per_unit(inclusive: np.ndarray) -> np.ndarray:
+    """Per-warp (or per-lane) counts from inclusive prefix counts."""
+    return np.diff(inclusive, axis=1, prepend=0)
 
 
 def test_cpu_tensors_take_the_plain_decode(crafted_batches):
