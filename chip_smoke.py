@@ -17,9 +17,10 @@ Phases, each of which exits non-zero on failure:
  4. kernel gates, each kernel bit-exact against its plain torch version
     on the card: B1 (and the NumPy protocol mirror) and B5 (and its
     NumPy mirror) at points 64 and 32; B2 and B3 for bench.py's three
-    views in colour and HQS modes; B3 and B4 on the orbit view's
-    uncollapsed streams of every live chunk, and B3 on its colour
-    streams; B6 on the parametric frame's pid-sorted
+    views in colour and HQS modes, and B2 in batch-payload mode (the
+    batch index, the LOD count) with and without collapse; B3 and B4 on
+    the orbit view's uncollapsed streams of every live chunk, and B3 on
+    its colour streams; B6 on the parametric frame's pid-sorted
     stream for each of its views and on the colour orbit chunk's stream
     sorted by pid, where it must also equal B3's planes; B8 on that
     stream sorted by (pid, depth, payload), equal to B3's planes, with
@@ -40,7 +41,9 @@ Phases, each of which exits non-zero on failure:
     across equal chain heads, with sentinels, tied depths and a partial
     lodn, at points 16, 32, 48 and 64 (the LOD buckets) and 40 (the
     build that takes the count at run time), steps 6 and 3, colour (with
-    and without the chain-head ladder) and HQS modes; B4 on 4M-entry streams
+    and without the chain-head ladder) and HQS modes, at points 16, 40 and
+    64 each also in batch-payload mode with a ragged per-batch payload
+    (`crafted.batch_payloads`); B4 on 4M-entry streams
     (every entry on one pixel, two pixels alternating, sentinel pids,
     EMPTY depths, depths at the tolerance and one ulp above it) split
     into uneven parts, one of them into 70 parts (two launches), and on
@@ -83,12 +86,26 @@ Phases, each of which exits non-zero on failure:
     Each listed kernel must have launched (B3 exactly once per frame on
     the `.tpc` and `.huffman` paths), and each image must show points and equal,
     bit for bit, the frame built from the plain torch versions alone;
+ 5b. the flagship frame's other outputs, through the app: on colour v2,
+    colour v1 (`huffman_tpu`) and colour `.huffman` (`huffman_mem_iter`)
+    at the orbit and corner views, each of `--colorize-chunks`,
+    `--show-num-points`, `--colorize-overdraw`, `--show-bounding-box`,
+    `--edl` and `--depth FILE`: B2 and the decoder launched, B3 once a
+    frame (none in `huffman_tpu`'s overdraw frame, which counts entries
+    instead), the image and the planes left in `last_fb` bit-exact
+    against the same frame built from the plain versions, the depth file
+    read back equal to the depth plane; one `--trace` run whose Chrome
+    trace names `pcr_decode_fixed`, `pcr_project` and `pcr_u64_min` and
+    holds kernels run on the card; the viewer (`engine/viewer.py`) on an
+    ephemeral localhost port, whose `/frame` is byte-equal to the PNG of
+    the app's colour v2 orbit image;
  6. times: median device frame (CUDA events), points/s, and each kernel
     beside its plain version, its bound and, where one PyTorch call
     computes the same function, that call, at the frame's shapes (one
-    orbit chunk; B6 at the parametric frame's); B2 in colour and in HQS
-    mode (two rows); B3 per chunk and over the orbit frame's parts in one
-    call, colour and HQS (three rows); B4's and B3's planes handed on as
+    orbit chunk; B6 at the parametric frame's); B2 in colour, HQS and
+    batch-payload mode (three rows); B3 per chunk and over the orbit
+    frame's parts in one call, colour and HQS (three rows); B4's and B3's
+    planes handed on as
     strided views against a contiguous split, through their consumers.
     Each kernel's `ms` brackets the wrapper call as the host enqueues
     it, so a wrapper whose host side outlasts its kernel reads the
@@ -101,7 +118,10 @@ Phases, each of which exits non-zero on failure:
     warps resident per SM, blocks per chunk and per SM; and the timed
     chunk's streams: words per warp stream, refills per lane, escapes
     per lane and per warp run, and the runs over the kernel's staging
-    cap.
+    cap.  What the debug modes, the depth plane, EDL and the overlay add
+    to the event-timed frame, and the device time of the depth
+    unswizzle, `edl_shade` and `draw_bounding_boxes` alone
+    (`utils/devtime.device_ms`).
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -115,7 +135,9 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -146,6 +168,11 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
     # the same kernel as HQS launches it (collapse=False): its own row
     "pcr_project:hqs": ("B2 fused projection, HQS mode", "pcrhpg24_tpu_torch/csrc/project.cu",
                         "pcrhpg24_tpu/render/pallas_project.py:83"),
+    # and with a per-batch payload in place of the colour (the debug frames)
+    "pcr_project:payload": ("B2 fused projection, batch-payload mode",
+                            "pcrhpg24_tpu_torch/csrc/project.cu",
+                            "pcrhpg24_tpu/render/pallas_project.py:83 (payload: XLA, "
+                            "methods/huffman_tpu.py:146)"),
     "pcr_u64_min": ("B3 u64-min resolve", "pcrhpg24_tpu_torch/csrc/raster.cu",
                     "pcrhpg24_tpu/render/pallas_merge.py:467"),
     # the same kernel over all of the orbit frame's parts in one call
@@ -196,6 +223,7 @@ MAIN_PATHS = [
 # the (path, view) whose launches are reported; None: reached by no method
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
          "pcr_project:hqs": ("hqs v2", "orbit"),
+         "pcr_project:payload": ("colour v2 chunks", "orbit"),
          "pcr_u64_min": ("colour v2", "orbit"), "pcr_u64_min:frame": ("colour v2", "orbit"),
          "pcr_u64_min:hqs": ("hqs v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
          "pcr_decode_native": ("colour v1", "orbit"),
@@ -386,6 +414,124 @@ def view_args(method, renderer, view: dict, lod: float) -> dict:
     renderer.controls_update()
     return method.frame_args(renderer)
 
+# the flagship frame's other outputs: (label, method, scene, kernels it
+# must launch), each at these views, with each of these app flags
+OUTPUT_PATHS = [
+    ("colour v2", "huffman_tpu", 2, ("pcr_decode_fixed", "pcr_project")),
+    ("colour v1", "huffman_tpu", 1, ("pcr_decode_native", "pcr_project")),
+    ("colour huffman", "huffman_mem_iter", "huffman", ("pcr_decode_huffman", "pcr_project")),
+]
+OUTPUT_VIEWS = ("orbit", "corner")
+OUTPUT_FLAGS = {
+    "chunks": ("--colorize-chunks",),
+    "num_points": ("--show-num-points",),
+    "overdraw": ("--colorize-overdraw",),
+    "boxes": ("--show-bounding-box",),
+    "edl": ("--edl",),
+    "depth": ("--depth",),
+}
+
+
+def app_argv(path: str, method_name: str, view: dict, frames: int) -> list:
+    return ["--scene", path, "--method", method_name, "--device", DEVICE,
+            "--width", str(W), "--height", str(H), "--lod", "1.0",
+            "--yaw", str(view["yaw"]), "--pitch", str(view["pitch"]),
+            "--radius", str(view["radius"]), "--target", *map(str, view["target"]),
+            "--frames", str(frames)]
+
+
+def output_phase(paths: dict, results: dict) -> None:
+    """Each of `OUTPUT_FLAGS` through the app on each of `OUTPUT_PATHS`
+    at `OUTPUT_VIEWS`: the kernels' launches, the image and the planes
+    the frame leaves in `last_fb` bit-exact against the same frame built
+    from the plain versions, the depth file read back; frame times into
+    `results[(f"{label} {flag}", view)]`."""
+    import torch
+
+    from pcrhpg24_tpu_torch import app
+    from pcrhpg24_tpu_torch.engine.debug import Debug
+    from pcrhpg24_tpu_torch.engine.method import Runtime
+    from pcrhpg24_tpu_torch.kernels import build
+    from pcrhpg24_tpu_torch.render.methods.huffman_mem_iter import mem_iter_frame
+    from pcrhpg24_tpu_torch.render.methods.huffman_tpu import render_frame_native
+    from pcrhpg24_tpu_torch.render.raster import BACKGROUND, edl_shade
+    from pcrhpg24_tpu_torch.utils.exr import read_exr_z
+
+    frames = WARMUP + FRAMES
+    plain_frame = {"huffman_tpu": render_frame_native, "huffman_mem_iter": mem_iter_frame}
+    for label, method_name, v, must in OUTPUT_PATHS:
+        tag = "huffman" if v == "huffman" else f"v{v}"
+        for name in OUTPUT_VIEWS:
+            for flag, extra in OUTPUT_FLAGS.items():
+                argv = app_argv(paths[v], method_name, TPC_VIEWS[name], frames) + list(extra)
+                depth_path = None
+                if flag == "depth":
+                    depth_path = os.path.join(
+                        REPO, "out", f"chip_smoke_depth_{tag}_{name}"
+                                     f"{'.exr' if v == 2 else '.npy'}")
+                    argv.append(depth_path)
+                for k in build.KERNELS.values():
+                    k.launches = 0
+                rr = app.run(argv)
+                launches = {s: k.launches for s, k in build.KERNELS.items()}
+                for s in must:
+                    check(launches[s] > 0, f"{s} never launched ({label} {flag}, {name})")
+                # the overdraw frame counts entries in place of the resolve
+                b3 = 0 if (flag == "overdraw" and method_name == "huffman_tpu") else frames
+                check(launches["pcr_u64_min"] == b3,
+                      f"pcr_u64_min launched {launches['pcr_u64_min']} times in {frames} "
+                      f"frames ({label} {flag}, {name}), not {b3}")
+                method = Runtime.selected
+                fd, fp, img = plain_frame[method_name](
+                    **method.frame_args(rr), **method.frame_mode(rr), plain=True)
+                if Debug.show_bounding_box:
+                    img = method.draw_boxes(rr, img)
+                if Debug.edl and fd is not None:
+                    img = edl_shade(img, fd, W, H, Debug.edl_strength)
+                got = rr.last_image
+                check(tuple(got.shape) == (H, W), f"no {H}x{W} image")
+                shown = int((got != BACKGROUND).sum())
+                check(shown > 0, f"{label} {flag} {name}: the image is all background")
+                e = same_planes([got, *rr.last_fb], [img, fd, fp],
+                                f"{label} {flag} {name}: image or planes != the "
+                                f"all-plain frame")
+                note = ""
+                if depth_path:
+                    back = (read_exr_z(depth_path) if depth_path.endswith(".exr")
+                            else np.load(depth_path))
+                    check(np.array_equal(back, rr.depth_image()),
+                          f"{label} {name}: the --depth file != fb_d")
+                    note = f"; {os.path.basename(depth_path)} read back equal to fb_d"
+                results[(f"{label} {flag}", name)] = dict(
+                    frame_ms=statistics.median(rr.frame_ms[WARMUP:]), shown=shown,
+                    launches=launches, frames=len(rr.frame_ms[WARMUP:]), output=flag)
+                planes = ", ".join("-" if x is None else "plane" for x in rr.last_fb)
+                print(f"[output] {label} ({method_name}) {name} {' '.join(extra)}: "
+                      f"{shown:,} pixels shown, image "
+                      f"and last_fb ({planes}) bit-exact vs the all-plain frame (err {e})"
+                      f"{note}; launches { {s: launches[s] for s in (*must, 'pcr_u64_min')} }")
+                method.las.unload()
+                del rr, method, got, img, fd, fp
+                Runtime.clear()
+                torch.cuda.empty_cache()
+    for f in ("colorize_chunks", "show_num_points", "colorize_overdraw", "edl",
+              "show_bounding_box"):
+        setattr(Debug, f, False)
+
+
+def fetch_frame(port: int, view: dict) -> tuple[bytes, str]:
+    """GET the viewer's /frame for `view` until it is not stale."""
+    import urllib.request
+
+    url = (f"http://127.0.0.1:{port}/frame?yaw={view['yaw']}&pitch={view['pitch']}"
+           f"&radius={view['radius']}&method=0&mode=")
+    for _ in range(4):
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            body = resp.read()
+            if resp.headers.get("x-stale") != "1":
+                return body, resp.headers.get("x-method")
+    raise RuntimeError("chip_smoke: the viewer's frames never converged")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -406,6 +552,7 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.engine.native_resource import NativeLasData
     from pcrhpg24_tpu_torch.engine.resource import HuffmanLasData
     from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
+    from pcrhpg24_tpu_torch.engine.viewer import ViewerServer
     from pcrhpg24_tpu_torch.formats.native_file import decode_tpc_batch_coords, read_tpc_batch
     from pcrhpg24_tpu_torch.kernels import build
     from pcrhpg24_tpu_torch.render.camera import frame_setup_device
@@ -434,8 +581,11 @@ def main(argv=None) -> int:
         N_U, N_V, Parametric, render_parametric, surface_points)
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
     from pcrhpg24_tpu_torch.render.raster import (
-        BACKGROUND, U64_MIN, project_points, resolve, sort_by_pid, swizzle_dims,
-        u64_min_planes, u64_min_planes_plain, unswizzle_plane)
+        BACKGROUND, U64_MIN, edl_shade, image_to_rgb8, project_points, resolve, sort_by_pid,
+        swizzle_dims, u64_min_planes, u64_min_planes_plain, unswizzle_plane)
+    from pcrhpg24_tpu_torch.render.overlay import draw_bounding_boxes
+    from pcrhpg24_tpu_torch.utils.devtime import device_ms
+    from pcrhpg24_tpu_torch.utils.png import write_png_bytes
     from pcrhpg24_tpu_torch.render.tile_sort import TILE, tile_sort3, tile_sort3_plain
     from pcrhpg24_tpu_torch.tools import crafted
     from pcrhpg24_tpu_torch.u32 import INT64_MAX, biased_key, from_u32, widen
@@ -664,6 +814,20 @@ def main(argv=None) -> int:
                     stream = got
                 else:
                     hstream = got
+            # B2's batch-payload mode (the debug frames' payloads): the
+            # batch index and the clamped LOD count, with and without collapse
+            for pay in (torch.arange(c * CHUNK, (c + 1) * CHUNK, dtype=torch.int32,
+                                     device=DEVICE), lod_n[cs]):
+                for collapse in (True, False):
+                    got = project_batches(*pargs, points=a["points"], collapse=collapse,
+                                          payload=pay)
+                    plain = project_plain(*pargs, points=a["points"], collapse=collapse,
+                                          payload=pay)
+                    torch.cuda.synchronize()
+                    for g, p in zip(got, plain):
+                        e = max_abs_err(g, p)
+                        check(e == 0, f"B2 payload mode != plain ({name}, lod {lod}, "
+                                      f"collapse={collapse}, err {e})")
             for st, mode in ((hstream, "HQS"), (stream, "colour")):
                 planes = u64_min_planes([st], size)
                 errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
@@ -671,7 +835,8 @@ def main(argv=None) -> int:
                     f"B3 != plain ({name}, lod {lod}, {mode} stream)"))
             live = [int((widen(x[0]) < size).sum()) for x in (stream, hstream)]
             print(f"[gate] {name} lod {lod}: chunk {c}, points {a['points']}: B2 "
-                  f"bit-exact vs project_plain (colour + HQS), B3 bit-exact vs "
+                  f"bit-exact vs project_plain (colour + HQS, and in batch-payload mode "
+                  f"with the batch index and the LOD count), B3 bit-exact vs "
                   f"u64_min_planes_plain on the colour and HQS streams ({live[0]:,} and "
                   f"{live[1]:,} live entries)")
             if name == "orbit" and lod == 1.0:
@@ -754,8 +919,23 @@ def main(argv=None) -> int:
         raw = want[0]
         aba = ((raw[:, :-2] == raw[:, 2:]) & (raw[:, :-2] != raw[:, 1:-1])
                & (widen(raw[:, 2:]) < size))
+        paid = ""
+        if pts in (16, 40, 64):  # batch-payload mode with a ragged per-batch payload
+            cpay = from_u32(crafted.batch_payloads(len(ca["lodn"]), seed=pts)).to(DEVICE)
+            for steps, collapse, chain in modes:
+                got = project_batches(*cargs, points=pts, steps=steps, chain_collapse=chain,
+                                      collapse=collapse, payload=cpay)
+                want = project_plain(*cargs, points=pts, steps=steps, chain_collapse=chain,
+                                     collapse=collapse, payload=cpay)
+                torch.cuda.synchronize()
+                for g, p in zip(got, want):
+                    e = max_abs_err(g, p)
+                    check(e == 0, f"B2 payload mode != plain on the crafted chunk (points "
+                                  f"{pts}, steps {steps}, collapse={collapse}, "
+                                  f"chain={chain}, err {e})")
+            paid = ", each also in batch-payload mode with a ragged per-batch payload"
         print(f"[gate] crafted chunk, points {pts}: B2 bit-exact vs project_plain at "
-              f"steps 6 and 3, colour with and without the head ladder, and HQS "
+              f"steps 6 and 3, colour with and without the head ladder, and HQS{paid} "
               f"({int(aba.sum()):,} A B A triples along chains, "
               f"{int((widen(raw) < size).sum()):,} live entries)")
     del ca, cargs, got, want, raw
@@ -913,7 +1093,7 @@ def main(argv=None) -> int:
     results = {}
     colour_v2 = {}  # huffman_tpu's images on the .tpc v2, by view
     tpc_f32 = None  # the .tpc v2 with las_min rounded to f32
-    plain_frames = {"huffman_tpu": lambda fa: render_frame_native(**fa, plain=True)[1],
+    plain_frames = {"huffman_tpu": lambda fa: render_frame_native(**fa, plain=True)[2],
                     "huffman_tpu_hqs": lambda fa: hqs_frame_native(**fa, plain=True)[2],
                     "huffman_mem_iter": lambda fa: mem_iter_frame(**fa, plain=True)[2],
                     "huffman_hqs": lambda fa: hqs_huffman_frame(**fa, plain=True)[2]}
@@ -921,12 +1101,7 @@ def main(argv=None) -> int:
         tag = "huffman" if v == "huffman" else f"v{v}"
         path = huf_path if v == "huffman" else scenes[v]
         for name, view in TPC_VIEWS.items():
-            argv = ["--scene", path, "--method", method_name, "--device", DEVICE,
-                    "--width", str(W), "--height", str(H), "--lod", "1.0",
-                    "--yaw", str(view["yaw"]), "--pitch", str(view["pitch"]),
-                    "--radius", str(view["radius"]),
-                    "--target", *map(str, view["target"]),
-                    "--frames", str(WARMUP + FRAMES)]
+            argv = app_argv(path, method_name, view, WARMUP + FRAMES)
             if name == "orbit":
                 shot = f"chip_smoke_{method_name}_{tag}_orbit.png"
                 argv += ["--screenshot", os.path.join(REPO, "out", shot)]
@@ -964,7 +1139,7 @@ def main(argv=None) -> int:
                     tpc_f32.wait_loaded()
                 check(np.array_equal(tpc_f32.las_min, method.las.las_min),
                       "the .huffman's las_min is not the .tpc's rounded to f32")
-                want = render_frame_native(**HuffmanTpu(rr, tpc_f32).frame_args(rr))[1]
+                want = render_frame_native(**HuffmanTpu(rr, tpc_f32).frame_args(rr))[2]
                 check(torch.equal(img, want),
                       f"{label} {name}: image != huffman_tpu's on the .tpc v2 with "
                       f"las_min in f32")
@@ -1048,6 +1223,56 @@ def main(argv=None) -> int:
 
     tpc_f32.unload()
 
+    # ---- 5b. the flagship frame's other outputs, through the app ----
+    output_phase({2: scenes[2], 1: scenes[1], "huffman": huf_path}, results)
+    # a --trace run: the profiler's ranges name each launch by its C symbol
+    trace_dir = os.path.join(REPO, "out", "chip_smoke_trace")
+    rr = app.run(app_argv(scenes[2], "huffman_tpu", VIEWS["orbit"], 2)
+                 + ["--trace", trace_dir])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    named = {e.get("name") for e in events}
+    on_card = [e for e in events if e.get("cat") == "kernel"]
+    for sym in ("pcr_decode_fixed", "pcr_project", "pcr_u64_min"):
+        check(sym in named, f"the --trace file names no {sym}")
+    check(len(on_card) > 0, "the --trace file holds no kernel run on the card")
+    print(f"[output] --trace {os.path.relpath(trace_dir, REPO)}/trace.json: {len(events):,} "
+          f"events, {len(on_card):,} kernels on the card over 2 frames, ranges "
+          f"pcr_decode_fixed, pcr_project and pcr_u64_min present")
+    Runtime.selected.las.unload()
+    Runtime.clear()
+    del rr
+    # the viewer on an ephemeral localhost port: its /frame is the app's image
+    rv = Renderer(W, H, DEVICE)
+    rv.apply_setting(Setting(**VIEWS["orbit"]))
+    Debug.lod = 1.0
+    vmethods = app.build_methods(rv, scenes[2])
+    app.wait_loaded(vmethods[0], rv)
+    srv = ViewerServer(rv, vmethods, 0)
+    port = srv.bind()
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/info", timeout=60) as resp:
+            info = json.loads(resp.read())
+        check(info["methods"] == ["huffman_tpu", "huffman_tpu_hqs"], f"viewer /info {info}")
+        png, served_by = fetch_frame(port, VIEWS["orbit"])
+        want = write_png_bytes(image_to_rgb8(colour_v2["orbit"]).numpy(), level=1)
+        check(served_by == "huffman_tpu" and png == want,
+              "the viewer's /frame != the app's colour v2 orbit image")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/timings", timeout=60) as resp:
+            rows = json.loads(resp.read())["rows"]
+        check(any(r_["label"] == "frame" for r_ in rows), "viewer /timings has no frame row")
+    finally:
+        srv.shutdown()
+        server.join(timeout=60)
+        vmethods[0].las.unload()
+        Runtime.clear()
+    check(not server.is_alive(), "the viewer's server thread did not stop")
+    print(f"[output] viewer on 127.0.0.1:{port}: /info, /timings, and /frame (orbit) "
+          f"byte-equal to the PNG of the app's colour v2 orbit image ({len(png):,} B)")
+    torch.cuda.empty_cache()
+
     # ---- 6. times: kernels at the frame's shapes (one orbit chunk; B6 at the
     # parametric frame's, B10 at 4,096 tiles of the HQS chunk) ----
     dargs, dpts = shapes["decode"]
@@ -1059,6 +1284,7 @@ def main(argv=None) -> int:
     sp, s3, hs, tiles = shapes["param"], shapes["key3"], shapes["hqs_sorted"], shapes["tiles"]
     fparts = shapes["frame"]
     psize = W * H
+    bpay = torch.arange(CHUNK, dtype=torch.int32, device=DEVICE)  # the batch index
 
     def amin_rows(pid, dep, pay, plane_size):
         """The one PyTorch call that computes the u64-min planes
@@ -1085,6 +1311,9 @@ def main(argv=None) -> int:
         "pcr_project:hqs": (lambda: project_batches(*pargs, points=ppts, collapse=False),
                             lambda: project_plain(*pargs, points=ppts, collapse=False),
                             None),
+        "pcr_project:payload": (lambda: project_batches(*pargs, points=ppts, payload=bpay),
+                                lambda: project_plain(*pargs, points=ppts, payload=bpay),
+                                None),
         "pcr_u64_min": (lambda: u64_min_planes([stream], size),
                         lambda: u64_min_planes_plain([stream], size),
                         lambda: plane3.scatter_reduce_(0, idx3, keys, reduce="amin")),
@@ -1123,6 +1352,7 @@ def main(argv=None) -> int:
                              + CHUNK * dpts * 3 * 1024 * 4),
         "pcr_project": nbytes(*pargs[:6]) + coords_b,  # 3 u32 outputs per entry
         "pcr_project:hqs": nbytes(*pargs[:6]) + coords_b,
+        "pcr_project:payload": nbytes(pargs[0], *pargs[2:6], bpay) + coords_b,  # no colours
         "pcr_u64_min": nbytes(*stream) + 8 * size,
         "pcr_u64_min:frame": sum(nbytes(*p) for p in fparts["colour"]) + 8 * size,
         "pcr_u64_min:hqs": sum(nbytes(*p) for p in fparts["hqs"]) + 8 * size,
@@ -1150,6 +1380,8 @@ def main(argv=None) -> int:
         "pcr_decode_huffman": f"the .huffman scene's first {CHUNK} batches at points "
                               f"{dpts}",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
+        "pcr_project:payload": f"one orbit chunk in batch-payload mode (the batch index), "
+                               f"{n:,} entries",
         **{f"pcr_u64_min:{row}": f"the orbit frame's {len(fparts[mode])} {mode} parts, "
                                  f"{sum(p[0].numel() for p in fparts[mode]):,} entries"
            for row, mode in (("frame", "colour"), ("hqs", "hqs"))},
@@ -1171,7 +1403,8 @@ def main(argv=None) -> int:
     }
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
-    bound_ops = {"pcr_project": 32 * n, "pcr_project:hqs": 32 * n}
+    bound_ops = {"pcr_project": 32 * n, "pcr_project:hqs": 32 * n,
+                 "pcr_project:payload": 32 * n}
     kernels = []
     for s, (kern, plain, library) in timed.items():
         k_ms = time_ms(kern, KERNEL_REPS)
@@ -1262,12 +1495,43 @@ def main(argv=None) -> int:
               f"{split_ms['views']:.4f} ms, contiguous split {split_ms['split']:.4f} ms "
               f"(the orbit frame's {len(fparts[mode])} parts) [{card}]")
     for (label, name), res in results.items():
+        if "output" in res:  # the [cost] lines below
+            continue
         what = {"parametric": "generated points", "wg": "points"}.get(label,
                                                                     "visible points")
         print(f"[time] {label} {name}: device frame {res['frame_ms']:.3f} ms median of "
               f"{res['frames']} (CUDA events), {res['visible']:,} {what}, "
               f"{res['visible'] / res['frame_ms'] / 1e6:.3f} Gpoints/s "
               f"@{W}x{H}, {args.batches} batches [{card}]")
+    # what the depth plane, EDL and the boxes add to a frame: the
+    # event-timed frames of the output phase against the path's colour
+    # frame, and the device time of each added step alone at the orbit
+    # frame's shapes
+    for (label, name), res in results.items():
+        if "output" not in res:
+            continue
+        base = label.rsplit(" ", 1)[0]
+        b = results[(base, name)]["frame_ms"]
+        print(f"[cost] {label} {name}: device frame {res['frame_ms']:.3f} ms median of "
+              f"{res['frames']} (CUDA events), {res['frame_ms'] - b:+.3f} ms vs the "
+              f"colour frame's {b:.3f} @{W}x{H}, {args.batches} batches [{card}]")
+    fb_dep = u64_min_planes(fparts["colour"], size)[0]
+    lin_d = unswizzle_plane(fb_dep, W, H)
+    orbit_img = colour_v2["orbit"].to(DEVICE)
+    B = data[2].num_batches_loaded
+    box_lo, box_hi = (torch.from_numpy(x[:B]).to(DEVICE) for x in (data[2].bbox_min,
+                                                                  data[2].bbox_max))
+    r.apply_setting(Setting(**VIEWS["orbit"]))
+    r.controls_update()
+    wvp = torch.from_numpy((r.camera.proj() @ r.camera.view()).astype(np.float32)).to(DEVICE)
+    for what, fn in (("the depth half's unswizzle (need_depth)",
+                      lambda: unswizzle_plane(fb_dep, W, H)),
+                     ("EDL (edl_shade)", lambda: edl_shade(orbit_img, lin_d, W, H)),
+                     (f"the overlay of {B} boxes (draw_bounding_boxes)",
+                      lambda: draw_bounding_boxes(orbit_img, box_lo, box_hi, wvp, W, H))):
+        ms = statistics.median([device_ms(fn) for _ in range(KERNEL_REPS)])
+        print(f"[cost] {what}: {ms:.4f} ms device (utils/devtime, median of {KERNEL_REPS} "
+              f"calls, each behind a spin; orbit, {W}x{H}) [{card}]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)  # as nvidia-smi prints name and power limit
     print(json.dumps({"kernels": kernels}))

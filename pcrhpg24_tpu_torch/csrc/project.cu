@@ -12,6 +12,12 @@
 // mode it then collapses runs along each chain (doubling steps up to
 // min(points, 2**steps)) and across the 1024 chain heads (10 steps);
 // non-heads become the sentinel id.  HQS mode writes the stream raw.
+// Batch-payload mode (`payload` given, one u32 per batch) writes the
+// batch's value as every entry's payload in place of the BC1 colour and
+// reads no colour words: the debug frames' batch index or LOD count
+// (pcrhpg24_tpu/render/methods/huffman_tpu.py:146-153), in any of the
+// three modes.  It is a template flag of its own (PAY), so the colour
+// and HQS kernels compile as they would without it.
 // Both ladders are the reference's: at step s entry i takes entry i+s's
 // key wherever the two pids are equal, whatever lies between them (so
 // `A B A` merges), and past the end the neighbour is (sentinel, 0, 0).
@@ -110,6 +116,7 @@ struct Args {
   const int* lodn;           // (C,)
   const int* coords;         // (C,points,3,8,128)
   const uint32_t* colors_k;  // (C,4,2,8,128)
+  const uint32_t* payload;   // (C,) or null: the BC1 colour
   uint32_t* pid;             // (C,points,8,128) each
   uint32_t* dep;
   uint32_t* pay;
@@ -117,10 +124,12 @@ struct Args {
 };
 
 // One thread's chain: the projection of entry i (pallas_project.py:109-126).
+// PAY: every entry's payload is its batch's `payload` word.
+template <bool PAY>
 struct Chain {
   float t00, t01, t02, t10, t11, t12, t30, t31, t32, sx, sy, sz;
   float tb0, tb1, tb3;
-  uint32_t ax, ay, az, sent;
+  uint32_t ax, ay, az, sent, bpay;
   int n, wt, width, height;
   uint32_t cw0[4], cw1[4];
   const int* crd;
@@ -141,11 +150,12 @@ struct Chain {
     wt = (width + 31) / 32;
     sent = static_cast<uint32_t>(wt * ((height + 31) / 32) * 1024);
     const int c = g * kLanes + lane;
+    bpay = PAY ? a.payload[b] : 0u;
     const uint32_t* col = a.colors_k + static_cast<long long>(b) * 8 * kChains + c;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      cw0[k] = col[(k * 2 + 0) * kChains];
-      cw1[k] = col[(k * 2 + 1) * kChains];
+      cw0[k] = PAY ? 0u : col[(k * 2 + 0) * kChains];
+      cw1[k] = PAY ? 0u : col[(k * 2 + 1) * kChains];
     }
     crd = a.coords + static_cast<long long>(b) * a.points * 3 * kChains + c;
   }
@@ -185,7 +195,7 @@ struct Chain {
                          static_cast<uint32_t>(px & 31);
     pid = ok ? swz : sent;
     dep = __float_as_uint(w);
-    pay = bc1_payload(pick4(cw0, blk), pick4(cw1, blk), i);
+    pay = PAY ? bpay : bc1_payload(pick4(cw0, blk), pick4(cw1, blk), i);
   }
 };
 
@@ -231,7 +241,7 @@ __device__ __forceinline__ void chain_ladder(uint32_t* sp, uint32_t* sd, uint32_
 }
 
 // POINTS = 0 takes the count from a.points (any 1..64).
-template <int POINTS, int MODE>
+template <int POINTS, int MODE, bool PAY>
 __global__ void __launch_bounds__(kThreads, 2)
 project_kernel(const Args a) {
   extern __shared__ uint32_t stage[];  // [3][P][kPitch]: pid, dep, pay
@@ -241,7 +251,7 @@ project_kernel(const Args a) {
   const int lane = threadIdx.x % kLanes;  // the thread's chain in the group
   const int slab = threadIdx.x / kLanes;  // its points: slab + 4k (BC1 block k >> 2)
   const int per = (P + kSlabs - 1) / kSlabs;  // static when POINTS is
-  const Chain ch(a, b, g, lane);
+  const Chain<PAY> ch(a, b, g, lane);
   const uint32_t sent = ch.sent;
   const long long row = static_cast<long long>(b) * P * kChains + g * kLanes + lane;
   if (MODE == kRaw) {
@@ -336,9 +346,9 @@ project_kernel(const Args a) {
   }
 }
 
-template <int POINTS, int MODE>
+template <int POINTS, int MODE, bool PAY>
 cudaError_t launch(const Args& a, int batches, cudaStream_t stream) {
-  auto kernel = project_kernel<POINTS, MODE>;
+  auto kernel = project_kernel<POINTS, MODE, PAY>;
   const int smem = MODE == kRaw ? 0 : 3 * a.points * kPitch * 4;
   static bool attr_set = false;
   if (!attr_set) {
@@ -365,15 +375,23 @@ cudaError_t launch(const Args& a, int batches, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <int MODE>
+template <int MODE, bool PAY>
 cudaError_t launch_points(const Args& a, int batches, cudaStream_t stream) {
   switch (a.points) {  // the LOD buckets, fully unrolled
-    case 16: return launch<16, MODE>(a, batches, stream);
-    case 32: return launch<32, MODE>(a, batches, stream);
-    case 48: return launch<48, MODE>(a, batches, stream);
-    case 64: return launch<64, MODE>(a, batches, stream);
-    default: return launch<0, MODE>(a, batches, stream);
+    case 16: return launch<16, MODE, PAY>(a, batches, stream);
+    case 32: return launch<32, MODE, PAY>(a, batches, stream);
+    case 48: return launch<48, MODE, PAY>(a, batches, stream);
+    case 64: return launch<64, MODE, PAY>(a, batches, stream);
+    default: return launch<0, MODE, PAY>(a, batches, stream);
   }
+}
+
+template <bool PAY>
+cudaError_t launch_mode(const Args& a, int batches, int chain_collapse, int collapse,
+                        cudaStream_t stream) {
+  if (!collapse) return launch<0, kRaw, PAY>(a, batches, stream);
+  if (chain_collapse) return launch_points<kChain, PAY>(a, batches, stream);
+  return launch_points<kCollapse, PAY>(a, batches, stream);
 }
 
 }  // namespace
@@ -381,24 +399,20 @@ cudaError_t launch_points(const Args& a, int batches, cudaStream_t stream) {
 extern "C" int pcr_project(const void* frame, const void* anchors,
                            const void* tbc, const void* lodn,
                            const void* coords, const void* colors_k,
-                           void* pid, void* dep, void* pay, int batches,
-                           int points, int width, int height, int steps,
-                           int chain_collapse, int collapse, void* stream) {
+                           const void* payload, void* pid, void* dep, void* pay,
+                           int batches, int points, int width, int height,
+                           int steps, int chain_collapse, int collapse,
+                           void* stream) {
   if (points < 1 || points > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(frame), static_cast<const int*>(anchors),
                static_cast<const float*>(tbc), static_cast<const int*>(lodn),
                static_cast<const int*>(coords), static_cast<const uint32_t*>(colors_k),
-               static_cast<uint32_t*>(pid), static_cast<uint32_t*>(dep),
-               static_cast<uint32_t*>(pay), points, width, height, steps};
+               static_cast<const uint32_t*>(payload), static_cast<uint32_t*>(pid),
+               static_cast<uint32_t*>(dep), static_cast<uint32_t*>(pay), points, width,
+               height, steps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (!collapse) {
-    err = launch<0, kRaw>(a, batches, s);
-  } else if (chain_collapse) {
-    err = launch_points<kChain>(a, batches, s);
-  } else {
-    err = launch_points<kCollapse>(a, batches, s);
-  }
+  cudaError_t err = payload ? launch_mode<true>(a, batches, chain_collapse, collapse, s)
+                            : launch_mode<false>(a, batches, chain_collapse, collapse, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }

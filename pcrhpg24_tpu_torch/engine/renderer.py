@@ -1,11 +1,13 @@
 """Offscreen renderer and main loop.
 
 Counterpart of `pcrhpg24_tpu/engine/renderer.py`: owns the camera and
-orbit controls, drives update/render, aggregates frame timings and
-saves screenshots through `utils/png.write_png`.  Where the
-reference blocks on the image with `block_until_ready`, this loop
-calls `torch.cuda.synchronize()`; on a CUDA device each frame's render
-is also bracketed by CUDA events, whose elapsed time lands in
+orbit controls, drives update/render, applies eye-dome lighting to a
+frame that left a depth plane (`Debug.edl`), aggregates frame timings,
+and saves screenshots through `utils/png.write_png` and depth planes
+through `utils/exr.write_exr_z` (or `.npy`).  Where the reference blocks
+on the image with `block_until_ready`, this loop calls
+`torch.cuda.synchronize()`; on a CUDA device each frame's render and
+EDL are also bracketed by CUDA events, whose elapsed time lands in
 `frame_ms` (the GLTimerQueries equivalent).
 """
 
@@ -18,7 +20,9 @@ import torch
 
 from .. import device_of
 from ..render.camera import Camera, OrbitControls
-from ..render.raster import image_to_rgb8
+from ..render.raster import edl_shade, image_to_rgb8
+from ..u32 import to_u32
+from ..utils.exr import write_exr_z
 from ..utils.png import write_png
 from .debug import Debug
 from .timing import Timings
@@ -46,7 +50,10 @@ class Renderer:
         self.frame_count = 0
         self.last_image = None
         self.last_fb = None
-        self.capture_depth = False  # the depth plane is ROADMAP A6/A11
+        # when False, colour methods may leave the depth plane out
+        # (`need_depth`); set True before rendering a frame whose depth
+        # `save_depth_exr` or another pass will read from last_fb[0]
+        self.capture_depth = False
 
     def apply_setting(self, setting: Setting) -> None:
         """Load a scene Setting's camera preset (main.cpp:215-218)."""
@@ -58,7 +65,9 @@ class Renderer:
     def loop(self, update, render, frames: int = 1, block: bool = True):
         """Run `frames` iterations of update+render (Renderer.cpp:239-766).
 
-        With `block` the frame time includes device completion.
+        With `block` the frame time includes device completion; without
+        it the loop never waits for the card (a method may still read a
+        small result back, as `huffman_tpu`'s live-chunk list).
         """
         cuda = self.device.type == "cuda"
         for _ in range(frames):
@@ -72,6 +81,10 @@ class Renderer:
                         ev1 = torch.cuda.Event(enable_timing=True)
                         ev0.record()
                     img = render(self)
+                    if (Debug.edl and img is not None and self.last_fb is not None
+                            and self.last_fb[0] is not None):
+                        img = edl_shade(img, self.last_fb[0].reshape(-1), self.width,
+                                        self.height, Debug.edl_strength)
                     if cuda:
                         ev1.record()
                     if block and cuda:
@@ -90,3 +103,27 @@ class Renderer:
         if self.last_image is None:
             raise RuntimeError("no frame rendered yet")
         write_png(path, image_to_rgb8(self.last_image).cpu().numpy())
+
+    def depth_image(self) -> np.ndarray:
+        """The last frame's depth plane as the depth dump holds it: (H, W)
+        f32, empty pixels 0, rows y-down."""
+        if self.last_fb is None:
+            raise RuntimeError("no framebuffer available")
+        fb_d, _ = self.last_fb
+        if fb_d is None:
+            raise RuntimeError(
+                "depth plane not captured; set renderer.capture_depth = True "
+                "before rendering the frame"
+            )
+        bits = to_u32(fb_d)
+        d = bits.view(np.float32).reshape(self.height, self.width)
+        return np.where(bits.reshape(self.height, self.width) == 0xFFFFFFFF, 0.0, d)[::-1]
+
+    def save_depth_exr(self, path: str) -> None:
+        """Dump the depth plane (huffman_mem_iter_cuda.h:200-220): a
+        single-channel Z EXR for `.exr` paths, `.npy` otherwise."""
+        d = self.depth_image()
+        if path.endswith(".exr"):
+            write_exr_z(path, d.astype(np.float32))
+        else:
+            np.save(path, d)

@@ -16,7 +16,8 @@ reference (`pallas_project.py:109-122`).
 Every C entry point takes its pointers and the stream as `void*`, the
 rest as `int` (a count as `long long`), and returns `cudaGetLastError()`
 after its launch;
-`Kernel.launch` raises if that is not 0 and counts the launch.
+`Kernel.launch` raises if that is not 0 and counts the launch, inside a
+`torch.profiler` range named by the C symbol (`pcr_*`).
 """
 
 from __future__ import annotations
@@ -142,7 +143,9 @@ class Kernel:
         fn = getattr(lib, self.symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = [*self.argtypes, P]  # stream last
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        # the symbol names the launch in a torch.profiler trace
+        with torch.profiler.record_function(self.symbol):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             msg = lib.pcr_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

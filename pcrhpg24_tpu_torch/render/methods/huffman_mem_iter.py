@@ -16,8 +16,12 @@ the component-wise minimum of the batch's chain starts
 (`HuffmanLasData`).  The reference resolves each 256-batch chunk by a
 sort and a head scatter, which gives the same planes as B3's min in any
 order and any chunking.  A chunk with no batch in view launches nothing;
-which chunks are live is read from the host's LOD counts.  Debug colour
-modes, bounding boxes and EDL raise with their ROADMAP items.
+which chunks are live is read from the host's LOD counts.  The debug
+modes `colorize_chunks` and `show_num_points` run B2 in batch-payload
+mode (the batch index, the LOD count); `colorize_overdraw` renders
+colour, as the reference's `huffman_mem_iter` has no overdraw frame.
+Bounding boxes are drawn over the image (`overlay.py`) and EDL is the
+renderer's.
 
 `HuffmanMemIter`'s resource switching and host cull + LOD are inherited
 by the `.tpc` method `huffman_tpu`, as in the reference.
@@ -33,9 +37,11 @@ from ...engine.debug import Debug
 from ...engine.method import Method, Runtime
 from ..camera import batch_translations, batches_in_frustum, frustum_planes, lod_points_per_thread
 from ..decode_huffman import decode_ref_batches, decode_ref_plain
+from ..overlay import draw_bounding_boxes
 from ..project import project_batches, project_plain
 from ..raster import (
     EMPTY,
+    frame_image,
     resolve,
     swizzle_dims,
     u64_min_planes,
@@ -47,6 +53,30 @@ CHUNK = 64  # batches per decode + project pass (4.2M points)
 LOD_PAD = RENDER_CHUNK_BATCHES  # lod_full padding, as the reference's
 REF_KEYS = ("enc_offsets", "cluster_sizes", "sep_offsets", "separate_sizes",
             "table_values", "table_cw_len", "start_values")
+
+
+def debug_mode(overdraw: bool = True) -> str:
+    """The frame mode the `Debug` flags ask for (`huffman_tpu.py:
+    381-386`): "colorize_chunks", "show_num_points", "colorize_overdraw"
+    (only where the method has that frame) or "color"."""
+    if Debug.colorize_chunks:
+        return "colorize_chunks"
+    if Debug.show_num_points:
+        return "show_num_points"
+    if overdraw and Debug.colorize_overdraw:
+        return "colorize_overdraw"
+    return "color"
+
+
+def batch_payload(mode: str, sl: slice, lod):
+    """B2's per-batch payload for the batches `sl` in a debug `mode`:
+    their batch indices or LOD counts (`lod`, int32); None (the BC1
+    colour) in colour mode."""
+    if mode == "colorize_chunks":
+        return torch.arange(sl.start, sl.stop, dtype=torch.int32, device=lod.device)
+    if mode == "show_num_points":
+        return lod[sl]
+    return None
 
 
 def decode_chunk(dev, sl: slice, points: int, plain: bool = False):
@@ -68,13 +98,15 @@ def live_chunks(lod_full: np.ndarray, batches: int) -> list[slice]:
 
 
 def mem_iter_frame(dev, lod, tb, frame12, width: int, height: int, chunks,
-                   points: int = POINTS_PER_THREAD, plain: bool = False):
-    """One colour frame -> (fb_depth, fb_payload, image).
+                   points: int = POINTS_PER_THREAD, mode: str = "color",
+                   plain: bool = False):
+    """One frame -> (fb_depth, fb_payload, image).
 
     dev: `HuffmanLasData.dev`; lod (B_pad,) i32 host LOD counts (0 ==
     culled); tb (B_pad, 4) f32 per-batch folded translations; frame12
     (12,) f32 (wvp rows 0/1/3 by columns 0..2, then scale xyz); chunks:
-    the live chunks' batch slices; `points` the static LOD bucket.  The planes
+    the live chunks' batch slices; `points` the static LOD bucket;
+    `mode` "color", "colorize_chunks" or "show_num_points".  The planes
     are (H*W,) int32 u32 bits in linear pixel order, the image (H, W)
     int32.  `plain=True` runs every stage's plain torch version.
     """
@@ -84,14 +116,15 @@ def mem_iter_frame(dev, lod, tb, frame12, width: int, height: int, chunks,
     for sl in chunks:
         coords = decode_chunk(dev, sl, points, plain)
         parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl], tb[sl],
-                             lod[sl], frame12, width, height, points=points))
+                             lod[sl], frame12, width, height, points=points,
+                             payload=batch_payload(mode, sl, lod)))
     if parts:
         fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
     else:
         fb_d = fb_p = torch.full((size,), EMPTY, dtype=torch.int32,
                                  device=dev["anchor"].device)
     fb_d, fb_p = (unswizzle_plane(x, width, height) for x in (fb_d, fb_p))
-    return fb_d, fb_p, resolve(fb_p, width, height)
+    return fb_d, fb_p, frame_image(fb_p, mode, width, height)
 
 
 class HuffmanMemIter(Method):
@@ -175,13 +208,26 @@ class HuffmanMemIter(Method):
             points=max(16, -(-int(lod_full[:B].max()) // 16) * 16),
         )
 
+    def frame_mode(self, renderer) -> dict:
+        """`mem_iter_frame`'s mode from the `Debug` flags (overdraw renders
+        colour: the reference's `huffman_mem_iter.py:203-208`)."""
+        return dict(mode=debug_mode(overdraw=False))
+
+    def draw_boxes(self, renderer, img):
+        """The loaded batches' boxes over `img` (`huffman_mem_iter.py:
+        242-247`), through the frame's f32 world-view-projection; the
+        rows past `num_batches_loaded` are never drawn (ROADMAP C6)."""
+        las = self.las
+        B = las.num_batches_loaded
+        wvp = (renderer.camera.proj() @ renderer.camera.view()).astype(np.float32)
+        packed = torch.from_numpy(np.concatenate([  # one host -> device copy
+            wvp.reshape(-1), las.bbox_min[:B].reshape(-1), las.bbox_max[:B].reshape(-1)]))
+        packed = packed.to(las.device)
+        return draw_bounding_boxes(img, packed[16:16 + 3 * B].reshape(B, 3),
+                                   packed[16 + 3 * B:].reshape(B, 3),
+                                   packed[:16].reshape(4, 4), renderer.width, renderer.height)
+
     def render(self, renderer):
-        if Debug.colorize_chunks or Debug.show_num_points or Debug.colorize_overdraw:
-            raise NotImplementedError("debug colour modes are ROADMAP A6")
-        if Debug.show_bounding_box:
-            raise NotImplementedError("bounding boxes (overlay.py) are ROADMAP A11")
-        if Debug.edl:
-            raise NotImplementedError("EDL (raster.edl_shade) is ROADMAP A6/A11")
         las = self.las
         las.process(renderer)
         W, H = renderer.width, renderer.height
@@ -189,6 +235,9 @@ class HuffmanMemIter(Method):
             empty = torch.full((W * H,), EMPTY, dtype=torch.int32, device=las.device)
             renderer.last_fb = (empty, empty)
             return resolve(empty, W, H)
-        fb_d, fb_p, img = mem_iter_frame(**self.frame_args(renderer))
+        fb_d, fb_p, img = mem_iter_frame(**self.frame_args(renderer),
+                                         **self.frame_mode(renderer))
         renderer.last_fb = (fb_d, fb_p)
+        if Debug.show_bounding_box:
+            img = self.draw_boxes(renderer, img)
         return img

@@ -5,13 +5,21 @@ device frustum cull + LOD, then for each live 64-batch chunk the
 geometry decode — fbatch (v2, B1) or tbatch (v1, B5) — and the fused
 projection + BC1 + run collapse (B2), then the exact u64-min resolve
 (B3) over every chunk's stream in one launch, the unswizzle of the
-payload half and the background fill.
+payload half and the background fill.  B3 writes the depth half too; it
+is unswizzled only when the frame asks for it (`need_depth`: the
+renderer's `capture_depth` or EDL).
 
 There is no sort: the reference's per-chunk `lax.sort` and its
 matscatter merge exist only because the TPU has no atomics
 (`pallas_merge.py:1-25`); B3's `atomicMin` gives the same planes in any
-order.  Debug colour modes, the depth plane (`need_depth`) and bounding
-boxes are ROADMAP A6/A11 and raise here.
+order.  The debug modes: `colorize_chunks` and `show_num_points` run B2
+in batch-payload mode (the batch index, the clamped LOD count) with its
+run collapse, which keeps each run's exact (depth, payload) minimum, so
+B3's planes are the reference's uncollapsed ones; `colorize_overdraw`
+runs B2 without collapse and counts every entry per pixel
+(`raster.overdraw_counts`) in place of B3.  Bounding boxes are drawn
+over the image for the loaded batches only (`HuffmanMemIter.draw_boxes`;
+the reference draws the zero rows of the rest too, ROADMAP C6).
 """
 
 from __future__ import annotations
@@ -27,26 +35,31 @@ from ..decode_tbatch import decode_native_batches, decode_native_plain
 from ..project import project_batches, project_plain
 from ..raster import (
     EMPTY,
+    frame_image,
+    overdraw_counts,
+    overdraw_image,
     resolve,
     swizzle_dims,
     u64_min_planes,
     u64_min_planes_plain,
     unswizzle_plane,
 )
-from .huffman_mem_iter import CHUNK, HuffmanMemIter
+from .huffman_mem_iter import CHUNK, HuffmanMemIter, batch_payload, debug_mode
 
 
 def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
                   nchunks: int, cull: bool, points: int = POINTS_PER_THREAD,
                   fmt: str = "fixed", plain: bool = False,
-                  collapse: bool = True):
+                  collapse: bool = True, mode: str = "color"):
     """Every live chunk's (pid, dep, pay) stream -> (parts, size, device).
 
     frame_params (40,) f32: view(16) | proj_params(6) | lod_floor | B |
     wvp(16); tb (B_pad, 4) f32 per-batch folded translations; scale
     (3,) f32.  `points` is the static LOD bucket: every chain decodes
     only that prefix.  `fmt` is "fixed" (v2, B1) or "tbatch" (v1, B5).
-    `collapse=False` (HQS) keeps every entry.  `plain=True` runs every
+    `collapse=False` (HQS) keeps every entry.  In `mode`
+    "colorize_chunks" or "show_num_points" the payload is each batch's
+    index or clamped LOD count (B2's batch-payload mode).  `plain=True` runs every
     stage's plain torch version on whatever device the tensors are on
     (the gate the kernels are held to); otherwise the stages dispatch on
     the tensors' device.
@@ -82,27 +95,40 @@ def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
         coords = decode(*(dev[k][sl] for k in keys), points=points)
         parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl],
                              tb[sl], lod_n[sl], frame12, width, height,
-                             points=points, collapse=collapse))
+                             points=points, collapse=collapse,
+                             payload=batch_payload(mode, sl, lod_n)))
     return parts, size, lod_n.device
 
 
 def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
                         nchunks: int, cull: bool,
                         points: int = POINTS_PER_THREAD, fmt: str = "fixed",
+                        mode: str = "color", need_depth: bool = False,
                         plain: bool = False):
-    """One colour frame -> (fb_payload (H*W,) int32 bits, image (H,W) int32).
+    """One frame -> (fb_depth or None, fb_payload, image): the planes
+    (H*W,) int32 u32 bits in linear pixel order, the image (H, W) int32.
 
-    Arguments as `frame_streams`.
+    Arguments as `frame_streams`; `mode` is "color", "colorize_chunks",
+    "show_num_points" or "colorize_overdraw" (then fb_payload holds the
+    per-pixel entry counts and fb_depth is None, `huffman_tpu.py:
+    296-309`); fb_depth is None unless `need_depth`.
     """
+    if mode == "colorize_overdraw":
+        parts, size, device = frame_streams(dev, frame_params, tb, scale, width,
+                                            height, nchunks, cull, points, fmt,
+                                            plain, collapse=False)
+        counts = unswizzle_plane(overdraw_counts(parts, size, device), width, height)
+        return None, counts, overdraw_image(counts, width, height)
     parts, size, device = frame_streams(dev, frame_params, tb, scale, width,
                                         height, nchunks, cull, points, fmt,
-                                        plain)
+                                        plain, mode=mode)
     if parts:
-        _fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
+        fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
     else:
-        fb_p = torch.full((size,), EMPTY, dtype=torch.int32, device=device)
+        fb_d = fb_p = torch.full((size,), EMPTY, dtype=torch.int32, device=device)
     fb_p = unswizzle_plane(fb_p, width, height)
-    return fb_p, resolve(fb_p, width, height)
+    fb_d = unswizzle_plane(fb_d, width, height) if need_depth else None
+    return fb_d, fb_p, frame_image(fb_p, mode, width, height)
 
 
 class HuffmanTpu(HuffmanMemIter):
@@ -152,20 +178,22 @@ class HuffmanTpu(HuffmanMemIter):
             points=points, fmt="fixed" if las.version == 2 else "tbatch",
         )
 
+    def frame_mode(self, renderer) -> dict:
+        """The rest of `render_frame_native`'s arguments: the frame mode
+        the `Debug` flags ask for, and whether the depth plane is needed
+        (`huffman_tpu.py:397`: captured, or read by EDL)."""
+        return dict(mode=debug_mode(), need_depth=bool(renderer.capture_depth or Debug.edl))
+
     def render(self, renderer):
-        if Debug.colorize_chunks or Debug.show_num_points or Debug.colorize_overdraw:
-            raise NotImplementedError("debug colour modes are ROADMAP A6")
-        if Debug.show_bounding_box:
-            raise NotImplementedError("bounding boxes (overlay.py) are ROADMAP A11")
-        if getattr(renderer, "capture_depth", False) or Debug.edl:
-            raise NotImplementedError(
-                "the depth plane (need_depth, EDL) is ROADMAP A6/A11")
         las = self.las
         las.process(renderer)
         if las.num_batches_loaded == 0:
             W, H = renderer.width, renderer.height
             empty = torch.full((W * H,), EMPTY, dtype=torch.int32, device=las.device)
             return resolve(empty, W, H)
-        fb_p, img = render_frame_native(**self.frame_args(renderer))
-        renderer.last_fb = (None, fb_p)
+        fb_d, fb_p, img = render_frame_native(**self.frame_args(renderer),
+                                              **self.frame_mode(renderer))
+        renderer.last_fb = (fb_d, fb_p)
+        if Debug.show_bounding_box:
+            img = self.draw_boxes(renderer, img)
         return img

@@ -8,7 +8,9 @@ round per op in the reference's order (pallas_project.py:109-122).
 The stream is (pid, dep, pay), each (C, points, 8, 128) int32 holding
 u32 bits; pid is in the swizzled 32x32-tile id space and carries the
 sentinel `swizzle_dims(width, height)[2]` for clipped, masked and
-collapsed entries.
+collapsed entries.  With a per-batch `payload` (batch-payload mode:
+the debug frames' batch index or LOD count, `huffman_tpu.py:146-153`)
+every entry's payload is its batch's value in place of the BC1 colour.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ LANES = 128
 CHAINS = G * LANES
 PTS = POINTS_PER_THREAD  # 64
 
-PROJECT = Kernel("pcr_project", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I])
+PROJECT = Kernel("pcr_project", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I])
 
 
 def colors_kernel_layout(colors: np.ndarray) -> np.ndarray:
@@ -78,12 +80,13 @@ def _shift_up(a, s: int, fill: int, dim: int):
 
 def project_plain(coords, colors_k, anchors, tbc, lodn, frame,
                   width: int, height: int, points: int = PTS, steps: int = 6,
-                  chain_collapse: bool = True, collapse: bool = True):
+                  chain_collapse: bool = True, collapse: bool = True, payload=None):
     """Pure-torch version of `project_batches` on any device.
 
     coords (C,points,3,8,128) i32, colors_k (C,4,2,8,128) i32 (u32
     bits), anchors (C,3) i32, tbc (C,4) f32, lodn (C,) i32, frame (12,)
-    f32 (wvp rows 0/1/3 by columns 0..2, then scale xyz).
+    f32 (wvp rows 0/1/3 by columns 0..2, then scale xyz), payload None
+    or (C,) i32 (u32 bits) per batch.
     """
     wt, _ht, size = swizzle_dims(width, height)
     C = coords.shape[0]
@@ -107,7 +110,10 @@ def project_plain(coords, colors_k, anchors, tbc, lodn, frame,
     swz = (((py >> 5) * wt + (px >> 5)) << 10) | ((py & 31) << 5) | (px & 31)
     pid = torch.where(ok, swz.to(torch.int64), torch.full_like(swz, size, dtype=torch.int64))
     d = widen(f32_bits(w))
-    p = _bc1_payload(colors_k, points)
+    if payload is None:
+        p = _bc1_payload(colors_k, points)
+    else:
+        p = widen(payload)[:, None, None, None].expand(d.shape).clone()
 
     if collapse:
         s = 1
@@ -145,18 +151,19 @@ def project_plain(coords, colors_k, anchors, tbc, lodn, frame,
 
 def project_batches(coords, colors_k, anchors, tbc, lodn, frame,
                     width: int, height: int, points: int = PTS, steps: int = 6,
-                    chain_collapse: bool = True, collapse: bool = True):
+                    chain_collapse: bool = True, collapse: bool = True, payload=None):
     """B2: same arguments and outputs as `pallas_project.project_batches`.
 
     CUDA tensors launch the kernel; CPU tensors take `project_plain`.
     `chain_collapse` applies only with `collapse` (colour mode); HQS
-    mode (`collapse=False`) writes every entry raw.
+    mode (`collapse=False`) writes every entry raw.  `payload` (C,) i32
+    switches to batch-payload mode in either.
     """
     chain_collapse = chain_collapse and collapse
     if not coords.is_cuda:
         return project_plain(coords, colors_k, anchors, tbc, lodn, frame,
                              width, height, points, steps, chain_collapse,
-                             collapse)
+                             collapse, payload)
     if not 0 < points <= PTS:
         raise ValueError(f"points must be in 1..{PTS}, got {points}")
     C = coords.shape[0]
@@ -166,11 +173,14 @@ def project_batches(coords, colors_k, anchors, tbc, lodn, frame,
     check_cuda("tbc", tbc, torch.float32, (C, 4))
     check_cuda("lodn", lodn, torch.int32, (C,))
     check_cuda("frame", frame, torch.float32, (12,))
+    if payload is not None:
+        check_cuda("payload", payload, torch.int32, (C,))
     outs = [torch.empty((C, points, G, LANES), dtype=torch.int32,
                         device=coords.device) for _ in range(3)]
     if C:
         PROJECT.launch(frame.data_ptr(), anchors.data_ptr(), tbc.data_ptr(),
                        lodn.data_ptr(), coords.data_ptr(), colors_k.data_ptr(),
+                       None if payload is None else payload.data_ptr(),
                        *(o.data_ptr() for o in outs), C, points, width, height,
                        steps, int(chain_collapse), int(collapse))
     return tuple(outs)

@@ -16,14 +16,20 @@ that resolve a whole frame in linear pixel ids (`parametric`,
 one sort by pid, then B6 (`merge.dense_from_sorted_nk1_multi`), as the
 reference's TPU path does.  Planes and images are int32 tensors holding
 the reference's u32 bits.
+
+After the resolve, all torch ops: the debug images (`frame_image`, and
+`overdraw_counts` with its heatmap `overdraw_image`, as
+`methods/huffman_tpu.py:296-342` has them) and eye-dome lighting
+(`edl_shade`, `raster.py:233-259`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.build import I, P, Kernel, part_groups
-from ..u32 import INT32_MIN, INT64_MAX, biased_key, key_views, split_key, unbias_key
+from ..u32 import INT32_MIN, INT64_MAX, biased_key, key_views, split_key, unbias_key, widen
 
 EMPTY = -1  # reference raster.EMPTY (0xFFFFFFFF) as int32 bits
 BACKGROUND = 0x00443322  # resolve.cu:166
@@ -143,6 +149,92 @@ def resolve(fb_payload, width: int, height: int):
     color = torch.where(fb_payload != EMPTY, fb_payload,
                         torch.full_like(fb_payload, BACKGROUND))
     return color.reshape(height, width)
+
+
+def frame_image(fb_payload, mode: str, width: int, height: int):
+    """The image of a payload plane (linear, int32 u32 bits) in a frame
+    `mode` (`huffman_tpu.py:319-342`): "color" resolves the BC1 colour;
+    "colorize_chunks" hashes the batch index (`fb_p * 1234567` mod 2**32);
+    "show_num_points" greys the LOD count (`clip(f32(fb_p) / 64 * 255,
+    0, 255)`, truncated).  Empty pixels take the background."""
+    if mode == "colorize_chunks":
+        # the product stays below 2**53 in int64; its low word is the u32 product
+        color = (widen(fb_payload) * 1234567).to(torch.int32)
+    elif mode == "show_num_points":
+        shade = torch.clamp((widen(fb_payload).to(torch.float32) / 64.0) * 255.0, 0, 255)
+        shade = shade.to(torch.int32)
+        color = shade | (shade << 8) | (shade << 16)
+    elif mode == "color":
+        return resolve(fb_payload, width, height)
+    else:
+        raise ValueError(f"no payload image for mode {mode!r}")
+    return torch.where(fb_payload != EMPTY, color,
+                       torch.full_like(color, BACKGROUND)).reshape(height, width)
+
+
+DROP_SLOTS = 1024  # spare count slots that take the entries landing nowhere
+
+
+def overdraw_counts(parts, size: int, device):
+    """Entries landing on each pixel of the swizzled id space, over every
+    (pid, dep, pay) part (uncollapsed streams) -> (size,) int32; pids at
+    or past `size` drop.  The reference's XLA scatter-add
+    (`huffman_tpu.py:300-302`) as `index_add_`.  The dropped entries (most
+    of a close-up's stream: the culled and LOD-masked points) go to
+    `DROP_SLOTS` spare slots past the plane, entry i to slot i % 1024, so
+    that their atomic adds on the card do not all meet on one word."""
+    counts = torch.zeros((size + DROP_SLOTS,), dtype=torch.int32, device=device)
+    for pid, _dep, _pay in parts:
+        q = widen(pid.reshape(-1))
+        spare = size + (torch.arange(q.numel(), device=device) & (DROP_SLOTS - 1))
+        counts.index_add_(0, torch.where(q < size, q, spare),
+                          torch.ones_like(q, dtype=torch.int32))
+    return counts[:size]
+
+
+NINTH = float(np.float32(1) / np.float32(9))  # XLA's reciprocal of the constant 9
+OVERDRAW_COLORS = ((10, 0x00A4DDAB), (250, 0x00BFFFFF), (1000, 0x0061AEFD),
+                   (4000, 0x001C19D7))
+
+
+def overdraw_image(counts, width: int, height: int):
+    """Linear (H*W,) counts -> (H, W) 5-bucket heatmap (`huffman_tpu.py:
+    303-309`, after compute_loop_las_hqs/resolve.cs:54-103)."""
+    color = torch.full_like(counts, 0x00BA832B)
+    for thresh, c in OVERDRAW_COLORS:
+        color = torch.where(counts >= thresh, torch.full_like(color, c), color)
+    return torch.where(counts > 0, color,
+                       torch.full_like(color, BACKGROUND)).reshape(height, width)
+
+
+def edl_shade(img, fb_d, width: int, height: int, strength: float = 0.0005):
+    """Eye-dome lighting (`raster.py:233-259`, after the reference's
+    resolve.cs:143-188): per pixel s = the sum over the 3x3 neighbourhood,
+    row-major from (-1, -1), of max(0, depth - neighbour depth), then
+    shade = exp(-(s / 9) * 300 * strength) and each RGB channel
+    min(ch * shade, 255) truncated, all in f32.  Empty pixels and the
+    border count as depth +inf; an empty pixel keeps its colour (its
+    inf - inf NaN is masked out).  `img` (H, W) int32, `fb_d` (W*H,)
+    depth bits in linear pixel order.  XLA divides by the constant 9 as
+    a multiply by its f32 reciprocal, so this does too."""
+    bits = fb_d.reshape(height, width)
+    empty = bits == EMPTY
+    d = torch.where(empty, float("inf"), bits.contiguous().view(torch.float32))
+    pad = torch.nn.functional.pad(d, (1, 1, 1, 1), value=float("inf"))
+    s = torch.zeros_like(d)
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            nb = pad[1 + oy:1 + oy + height, 1 + ox:1 + ox + width]
+            s = s + (d - nb).clamp_min(0.0)
+    # Python floats that f32 holds exactly: no host -> device copy
+    shade = torch.exp(-(s * NINTH) * 300.0 * float(np.float32(strength)))
+
+    def ch(sh):
+        v = ((img >> sh) & 0xFF).to(torch.float32) * shade
+        return torch.clamp(v, max=255.0).to(torch.int32)
+
+    shaded = ch(0) | (ch(8) << 8) | (ch(16) << 16)
+    return torch.where(empty, img, shaded)
 
 
 def image_to_rgb8(image):

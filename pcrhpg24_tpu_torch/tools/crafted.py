@@ -168,6 +168,18 @@ def project_inputs(batches: int, points: int, width: int, height: int,
                 lodn=lodn.astype(np.int32), frame=frame)
 
 
+def batch_payloads(batches: int, seed: int = 0) -> np.ndarray:
+    """-> (batches,) u32 per-batch payloads for B2's batch-payload mode:
+    ragged runs of repeated values (equal payloads, so depth alone
+    decides), 0, all ones and values with the top bit set."""
+    rng = np.random.default_rng(seed)
+    pay = rng.integers(0, 2**32, batches, dtype=np.uint64).astype(np.uint32)
+    runs = np.repeat(np.arange(batches), rng.integers(1, 5, batches))[:batches]
+    pay = pay[runs]
+    pay[: min(batches, 2)] = (0, 0xFFFFFFFF)[: min(batches, 2)]
+    return pay
+
+
 def _batch_coords(deltas: np.ndarray, rng):
     """(1024, 63, 3) i64 chain deltas -> x, y, z (65536,) i32 whose chains
     (from random starts, wrapping mod 2**32) have exactly these deltas."""

@@ -16,6 +16,8 @@ the reference's does not).  Run on a host with a card:
         [--method huffman_tpu|huffman_tpu_hqs|huffman_mem_iter|huffman_hqs] \
         [--view orbit] [--frames 5]
     python -m pcrhpg24_tpu_torch.tools.profile_frame --scene parametric --view near
+    python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc \
+        --outputs colorize_overdraw edl   # the frame's other outputs: any of OUTPUTS
 """
 
 from __future__ import annotations
@@ -43,6 +45,12 @@ VIEWS = {
 }
 
 
+# `Debug` flags of the colour frames' other outputs, and "depth" (the
+# renderer's capture_depth)
+OUTPUTS = ("colorize_chunks", "show_num_points", "colorize_overdraw", "show_bounding_box",
+           "edl", "depth")
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -54,12 +62,15 @@ def busy_us(intervals) -> float:
 
 
 def profile(scene: str, method: str | None, view: str, frames: int, width: int,
-            height: int, lod: float) -> dict:
+            height: int, lod: float, outputs=()) -> dict:
     from ..app import build_methods
     from ..render.methods.loop_nodes_compressed import ComputeLoopNodesCompressed, WgData
 
     Debug.lod = lod
+    for flag in OUTPUTS[:-1]:
+        setattr(Debug, flag, flag in outputs)
     r = Renderer(width, height, "cuda")
+    r.capture_depth = "depth" in outputs
     r.apply_setting(VIEWS[view])
     if scene.endswith(".wg"):
         m = ComputeLoopNodesCompressed(r, WgData.create(scene, "cuda"))
@@ -118,13 +129,16 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--lod", type=float, default=1.0)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--outputs", nargs="*", default=[], choices=OUTPUTS,
+                    help="the colour frame's other outputs to render")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no card", file=sys.stderr)
         return 1
     res = profile(args.scene, args.method, args.view, args.frames, args.width,
-                  args.height, args.lod)
-    print(f"[profile] {res['method']} {args.view} {args.scene}: wall "
+                  args.height, args.lod, args.outputs)
+    shown = f" +{'+'.join(args.outputs)}" if args.outputs else ""
+    print(f"[profile] {res['method']}{shown} {args.view} {args.scene}: wall "
           f"{res['wall_ms']:.3f} ms/frame (without the profiler "
           f"{res['plain_wall_ms']:.3f}), device busy {res['busy_ms']:.3f} "
           f"ms/frame, idle share {res['idle_share']:.3f}, peak "

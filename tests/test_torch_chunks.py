@@ -99,7 +99,7 @@ def _frames(las, ref, setting, monkeypatch):
         return out
 
     monkeypatch.setattr(huffman_tpu, "frame_streams", counted)
-    _fb, img = huffman_tpu.render_frame_native(**{
+    _fb_d, _fb_p, img = huffman_tpu.render_frame_native(**{
         **a, "frame_params": torch.from_numpy(fp), "tb": torch.from_numpy(tb),
         "scale": torch.from_numpy(ones)})
 

@@ -186,7 +186,7 @@ def test_slice_bit_exact_vs_composed_reference(scene, view, lod):
     method.update(r)
     las.wait_loaded()
     las.dev = dev_from_numpy(ref_dev, "cpu")  # identical state for both
-    _fb_p, img = render_frame_native(**method.frame_args(r))
+    _fb_d, _fb_p, img = render_frame_native(**method.frame_args(r))
     got = img.numpy().view(np.uint32)
     np.testing.assert_array_equal(got, want)
     assert (want != 0x00443322).sum() > 500
@@ -213,7 +213,7 @@ def test_slice_bit_exact_vs_render_frame_native_pow2(scene):
         ref.dev, jnp.asarray(fp), jnp.asarray(ones), jnp.zeros(3, jnp.float32),
         width=W, height=H, mode="color", nchunks=1, use_pallas=False,
         cull=False, points=64, need_depth=False, fmt="fixed", tb=jnp.asarray(tb))
-    _fb, img = render_frame_native(
+    _fb_d, _fb_p, img = render_frame_native(
         dev_from_numpy(ref_dev, "cpu"), torch.from_numpy(fp),
         torch.from_numpy(tb), torch.from_numpy(ones), W, H, nchunks=1,
         cull=False, points=64)

@@ -212,7 +212,7 @@ def test_native_data_image_equals_tpc(scene, view):
         m = HuffmanTpu(r, data)
         m.update(r)
         data.wait_loaded()
-        imgs.append(render_frame_native(**m.frame_args(r))[1].numpy())
+        imgs.append(render_frame_native(**m.frame_args(r))[2].numpy())
         data.unload()
         Runtime.clear()
     np.testing.assert_array_equal(imgs[0], imgs[1])

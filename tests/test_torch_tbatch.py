@@ -251,7 +251,7 @@ def test_v1_frame_bit_exact_vs_reference(scene, view, lod):
     las.wait_loaded()
     args = method.frame_args(r)
     assert args["fmt"] == "tbatch"
-    fb_p, img = render_frame_native(**args)
+    _fb_d, fb_p, img = render_frame_native(**args)
     want_p, want_img = _reference_frame(ref_dev, args)
     np.testing.assert_array_equal(to_u32(img), want_img)
     np.testing.assert_array_equal(to_u32(fb_p), want_p)
