@@ -82,15 +82,25 @@ Phases, each of which exits non-zero on failure:
     64-batch chunk with no batch in view (the live-chunk skip; each
     frame's live chunks are printed), and `--scene parametric` (B6) at three cameras
     on the radius-10 sphere; through `Renderer.loop` and the method class,
-    `loop_nodes_compressed` on the `.wg` scene (B6) at bench.py's views.
-    Each listed kernel must have launched (B3 exactly once per frame on
-    the `.tpc` and `.huffman` paths), and each image must show points and equal,
-    bit for bit, the frame built from the plain torch versions alone;
+    `loop_nodes_compressed` on the `.wg` scene (B6) at bench.py's views;
+    through the app, the `.las` scene's nine methods (the source paper's
+    baselines: `loop_las`, `loop_las2`, `loop_las_hqs`, `basic`, the
+    four 2021 variants and `2021 hqs`) at the `.tpc` paths' four views,
+    and `basic` on the multi-file scene at the orbit view: B3 exactly
+    once a frame, B4 exactly once an HQS frame and no other kernel; B3
+    and B4 also held against their plain versions on the `loop_las_hqs`
+    orbit frame's parts.  Each listed kernel must have launched (B3
+    exactly once per frame on the `.tpc`, `.huffman` and `.las` paths),
+    and each image (and on the `.las` paths each plane left in
+    `last_fb`) must show points and equal, bit for bit, the frame built
+    from the plain torch versions alone;
  5b. the flagship frame's other outputs, through the app: on colour v2,
     colour v1 (`huffman_tpu`) and colour `.huffman` (`huffman_mem_iter`)
     at the orbit and corner views, each of `--colorize-chunks`,
     `--show-num-points`, `--colorize-overdraw`, `--show-bounding-box`,
-    `--edl` and `--depth FILE`: B2 and the decoder launched, B3 once a
+    `--edl` and `--depth FILE`, and `--edl` and `--depth FILE` on the
+    `.las` scene's `loop_las` at the orbit view: B2 and the decoder
+    launched (not on `loop_las`), B3 once a
     frame (none in `huffman_tpu`'s overdraw frame, which counts entries
     instead), the image and the planes left in `last_fb` bit-exact
     against the same frame built from the plain versions, the depth file
@@ -104,7 +114,10 @@ Phases, each of which exits non-zero on failure:
     computes the same function, that call, at the frame's shapes (one
     orbit chunk; B6 at the parametric frame's); B2 in colour, HQS and
     batch-payload mode (three rows); B3 per chunk and over the orbit
-    frame's parts in one call, colour and HQS (three rows); B4's and B3's
+    frame's parts in one call, colour and HQS (three rows); B3 and B4
+    over the `loop_las` orbit frame's parts (two more rows); the device
+    time of the `.las` projections (torch ops) of `loop_las`, `basic`
+    and `2021 early-z` at the orbit view; B4's and B3's
     planes handed on as
     strided views against a contiguous split, through their consumers.
     Each kernel's `ms` brackets the wrapper call as the host enqueues
@@ -184,6 +197,16 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                         "pcrhpg24_tpu/render/pallas_merge.py:467"),
     "pcr_hqs_sums": ("B4 HQS blend sums", "pcrhpg24_tpu_torch/csrc/hqs.cu",
                      "pcrhpg24_tpu/render/pallas_hqs.py:185"),
+    # B3 and B4 where the `.las` methods' XLA resolves stood: every chunk of
+    # a frame in one launch, linear pixel ids
+    "pcr_u64_min:las": ("B3 u64-min resolve, one loop_las frame's parts",
+                        "pcrhpg24_tpu_torch/csrc/raster.cu",
+                        "pcrhpg24_tpu/render/pallas_merge.py:467 (on the .las path: XLA "
+                        "sorted_scatter_u64_min, raster.py:125)"),
+    "pcr_hqs_sums:las": ("B4 HQS blend sums, one loop_las_hqs frame's parts",
+                         "pcrhpg24_tpu_torch/csrc/hqs.cu",
+                         "pcrhpg24_tpu/render/pallas_hqs.py:185 (on the .las path: XLA "
+                         "scatter-adds, methods/loop_las.py:415-418)"),
     "pcr_decode_native": ("B5 tbatch decode", "pcrhpg24_tpu_torch/csrc/decode_native.cu",
                           "pcrhpg24_tpu/render/pallas_decode.py:55"),
     # B6' (pallas_merge.py:278) is the same function: this kernel serves both
@@ -220,6 +243,11 @@ MAIN_PATHS = [
     ("huffman->v2", "huffman_tpu", "huffman",
      ("pcr_decode_fixed", "pcr_project", "pcr_u64_min")),
 ]
+# the `.las` methods, the source paper's baselines, in the app's order:
+# (method, kernels it must launch; every other kernel must not launch)
+LAS_METHODS = [(name, ("pcr_u64_min", "pcr_hqs_sums") if "hqs" in name else ("pcr_u64_min",))
+               for name in ("loop_las", "loop_las2", "loop_las_hqs", "basic", "2021 early-z",
+                            "2021 early-z & reduce", "2021 dedup", "GL_POINTS", "2021 hqs")]
 # the (path, view) whose launches are reported; None: reached by no method
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
          "pcr_project:hqs": ("hqs v2", "orbit"),
@@ -229,7 +257,9 @@ OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2"
          "pcr_decode_native": ("colour v1", "orbit"),
          "pcr_merge_nk1": ("parametric", "near"), "pcr_merge_heads": None,
          "pcr_hqs_sorted": None, "pcr_tile_sort3": None,
-         "pcr_decode_huffman": ("colour huffman", "orbit")}
+         "pcr_decode_huffman": ("colour huffman", "orbit"),
+         "pcr_u64_min:las": ("las loop_las", "orbit"),
+         "pcr_hqs_sums:las": ("las loop_las_hqs", "orbit")}
 # B12's arguments: the whole flat buffers, then each batch's rows
 REF_KEYS = ("encoding", "enc_offsets", "cluster_sizes", "separate", "sep_offsets",
             "separate_sizes", "table_values", "table_cw_len", "start_values")
@@ -304,14 +334,26 @@ def hqs_rows(pid, dep, pay, fb_depth, size: int):
     return idx, vals
 
 
+LAZ_POINTS = 65536  # the multi-file scene's `.laz`: the codec is pure Python
+LAZ_GRID = dict(scale=(0.01, 0.01, 0.01), offset=(3.0, 5.0, 0.0))  # another grid
+
+
+def multi_paths(base: str) -> list:
+    """The multi-file scene: the terrain's two halves as `.las`, and its
+    first 65,536 points again as a `.laz` on a 1 cm grid."""
+    return [f"{base}_a.las", f"{base}_b.las", f"{base}_c.laz"]
+
+
 def build_scenes(base: str, batches: int) -> tuple[float, float]:
     """bench.py's generator (bench.py:86-102), written by the port's
-    preprocessor as `<base>_v2.tpc`, `<base>_v1.tpc` and `<base>.huffman`
-    and by its Potree builder and `.wg` converter as `<base>.wg`;
-    -> (seconds in all, seconds writing the `.huffman`)."""
+    `write_las` as `<base>.las` and as the multi-file scene of
+    `multi_paths`, by its preprocessor as `<base>_v2.tpc`, `<base>_v1.tpc`
+    and `<base>.huffman`, and by its Potree writer and `.wg` converter
+    as `<base>.wg`; -> (seconds in all, seconds writing the `.huffman`)."""
     import shutil
 
     from pcrhpg24_tpu_torch.formats.las import write_las
+    from pcrhpg24_tpu_torch.formats.laz import write_laz
     from pcrhpg24_tpu_torch.formats.potree import build_potree
     from pcrhpg24_tpu_torch.preprocess import preprocess_las, preprocess_las_tpc
     from pcrhpg24_tpu_torch.tools.potree_to_wg import convert
@@ -319,10 +361,10 @@ def build_scenes(base: str, batches: int) -> tuple[float, float]:
 
     todo = [(v, codec) for v, codec in ((2, "fixed"), (1, "huffman"))
             if not os.path.exists(f"{base}_v{v}.tpc")]
-    huf = base + ".huffman"
-    wg = base + ".wg"
+    las, huf, wg = base + ".las", base + ".huffman", base + ".wg"
+    multi = multi_paths(base)
     huf_s = 0.0
-    if not todo and os.path.exists(wg) and os.path.exists(huf):
+    if not todo and all(os.path.exists(p) for p in (las, huf, wg, *multi)):
         return 0.0, huf_s
     t0 = time.perf_counter()
     xyz, rgb = terrain_cloud(batches * 65536, seed=1, extent=2000.0)
@@ -332,21 +374,30 @@ def build_scenes(base: str, batches: int) -> tuple[float, float]:
         convert(potree, wg + ".tmp", precision=0.001)
         os.replace(wg + ".tmp", wg)
         shutil.rmtree(potree)
-    if todo or not os.path.exists(huf):
-        grid = cloud_to_grid(xyz, scale=(0.001, 0.001, 0.001))
-        las = base + ".las"
-        write_las(las, grid[:, 0], grid[:, 1], grid[:, 2], rgb)
-        del grid
-        for v, codec in todo:
-            out = f"{base}_v{v}.tpc"
-            preprocess_las_tpc(las, out + ".tmp", sort=True, verbose=False, codec=codec)
-            os.replace(out + ".tmp", out)
-        if not os.path.exists(huf):
-            t1 = time.perf_counter()
-            preprocess_las(las, huf + ".tmp", sort=True, verbose=False)
-            os.replace(huf + ".tmp", huf)
-            huf_s = time.perf_counter() - t1
-        os.remove(las)
+    grid = cloud_to_grid(xyz, scale=(0.001, 0.001, 0.001))
+    if not os.path.exists(las):
+        write_las(las + ".tmp", grid[:, 0], grid[:, 1], grid[:, 2], rgb)
+        os.replace(las + ".tmp", las)
+    half = len(grid) // 2
+    for path, sl in zip(multi[:2], (slice(0, half), slice(half, None))):
+        if not os.path.exists(path):
+            write_las(path + ".tmp", grid[sl, 0], grid[sl, 1], grid[sl, 2], rgb[sl])
+            os.replace(path + ".tmp", path)
+    if not os.path.exists(multi[2]):
+        g = cloud_to_grid(xyz[:LAZ_POINTS], **LAZ_GRID)
+        write_laz(multi[2] + ".tmp", g[:, 0], g[:, 1], g[:, 2], rgb=rgb[:LAZ_POINTS],
+                  point_format=2, **LAZ_GRID)
+        os.replace(multi[2] + ".tmp", multi[2])
+    del grid
+    for v, codec in todo:
+        out = f"{base}_v{v}.tpc"
+        preprocess_las_tpc(las, out + ".tmp", sort=True, verbose=False, codec=codec)
+        os.replace(out + ".tmp", out)
+    if not os.path.exists(huf):
+        t1 = time.perf_counter()
+        preprocess_las(las, huf + ".tmp", sort=True, verbose=False)
+        os.replace(huf + ".tmp", huf)
+        huf_s = time.perf_counter() - t1
     return time.perf_counter() - t0, huf_s
 
 
@@ -416,11 +467,6 @@ def view_args(method, renderer, view: dict, lod: float) -> dict:
 
 # the flagship frame's other outputs: (label, method, scene, kernels it
 # must launch), each at these views, with each of these app flags
-OUTPUT_PATHS = [
-    ("colour v2", "huffman_tpu", 2, ("pcr_decode_fixed", "pcr_project")),
-    ("colour v1", "huffman_tpu", 1, ("pcr_decode_native", "pcr_project")),
-    ("colour huffman", "huffman_mem_iter", "huffman", ("pcr_decode_huffman", "pcr_project")),
-]
 OUTPUT_VIEWS = ("orbit", "corner")
 OUTPUT_FLAGS = {
     "chunks": ("--colorize-chunks",),
@@ -430,6 +476,15 @@ OUTPUT_FLAGS = {
     "edl": ("--edl",),
     "depth": ("--depth",),
 }
+OUTPUT_PATHS = [  # (label, method, scene, kernels, views, flags)
+    ("colour v2", "huffman_tpu", 2, ("pcr_decode_fixed", "pcr_project"), OUTPUT_VIEWS,
+     tuple(OUTPUT_FLAGS)),
+    ("colour v1", "huffman_tpu", 1, ("pcr_decode_native", "pcr_project"), OUTPUT_VIEWS,
+     tuple(OUTPUT_FLAGS)),
+    ("colour huffman", "huffman_mem_iter", "huffman", ("pcr_decode_huffman", "pcr_project"),
+     OUTPUT_VIEWS, tuple(OUTPUT_FLAGS)),
+    ("las loop_las", "loop_las", "las", (), ("orbit",), ("edl", "depth")),
+]
 
 
 def app_argv(path: str, method_name: str, view: dict, frames: int) -> list:
@@ -459,10 +514,11 @@ def output_phase(paths: dict, results: dict) -> None:
 
     frames = WARMUP + FRAMES
     plain_frame = {"huffman_tpu": render_frame_native, "huffman_mem_iter": mem_iter_frame}
-    for label, method_name, v, must in OUTPUT_PATHS:
-        tag = "huffman" if v == "huffman" else f"v{v}"
-        for name in OUTPUT_VIEWS:
-            for flag, extra in OUTPUT_FLAGS.items():
+    for label, method_name, v, must, views, flags in OUTPUT_PATHS:
+        tag = v if isinstance(v, str) else f"v{v}"
+        for name in views:
+            for flag in flags:
+                extra = OUTPUT_FLAGS[flag]
                 argv = app_argv(paths[v], method_name, TPC_VIEWS[name], frames) + list(extra)
                 depth_path = None
                 if flag == "depth":
@@ -482,8 +538,11 @@ def output_phase(paths: dict, results: dict) -> None:
                       f"pcr_u64_min launched {launches['pcr_u64_min']} times in {frames} "
                       f"frames ({label} {flag}, {name}), not {b3}")
                 method = Runtime.selected
-                fd, fp, img = plain_frame[method_name](
-                    **method.frame_args(rr), **method.frame_mode(rr), plain=True)
+                if method_name in plain_frame:
+                    fd, fp, img = plain_frame[method_name](
+                        **method.frame_args(rr), **method.frame_mode(rr), plain=True)
+                else:  # a `.las` method
+                    fd, fp, img = method.frame(rr, plain=True)
                 if Debug.show_bounding_box:
                     img = method.draw_boxes(rr, img)
                 if Debug.edl and fd is not None:
@@ -517,6 +576,88 @@ def output_phase(paths: dict, results: dict) -> None:
     for f in ("colorize_chunks", "show_num_points", "colorize_overdraw", "edl",
               "show_bounding_box"):
         setattr(Debug, f, False)
+
+
+def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) -> dict:
+    """The nine `.las` methods through the app at `TPC_VIEWS`, and `basic`
+    on the multi-file scene at the orbit view: B3 launched once a frame,
+    B4 once an HQS frame, no other kernel; the image and the planes left
+    in `last_fb` bit-exact against the same frame built from the plain
+    versions.  Frame times into `results[(f"las {method}", view)]`; the
+    device time of each frame's projection (torch ops) printed; B3 and
+    B4 held against their plain versions on the orbit frame's parts.
+    -> the loop_las_hqs orbit frame's parts, colour parts and depth plane
+    (the kernels line's `.las` rows)."""
+    import torch
+
+    from pcrhpg24_tpu_torch import app
+    from pcrhpg24_tpu_torch.engine.method import Runtime
+    from pcrhpg24_tpu_torch.kernels import build
+    from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
+    from pcrhpg24_tpu_torch.render.methods import basic, compute_2021, loop_las
+    from pcrhpg24_tpu_torch.render.raster import BACKGROUND, u64_min_planes, u64_min_planes_plain
+    from pcrhpg24_tpu_torch.utils.devtime import device_ms
+
+    frames = WARMUP + FRAMES
+    size = W * H
+    parts_of = {loop_las.ComputeLoopLas: loop_las.loop_las_parts,
+                basic.BasicMethod: basic.basic_parts,
+                compute_2021.Compute2021: compute_2021.compute2021_parts}
+    shapes = {}
+    runs = [(las_path, name, must, view) for name, must in LAS_METHODS for view in TPC_VIEWS]
+    runs.append((",".join(multi), "basic", ("pcr_u64_min",), "orbit"))
+    for path, method_name, must, name in runs:
+        label = f"las {method_name}" if path == las_path else f"multi-file {method_name}"
+        for k in build.KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rr = app.run(app_argv(path, method_name, TPC_VIEWS[name], frames))
+        wall = time.perf_counter() - t0
+        launches = {s: k.launches for s, k in build.KERNELS.items()}
+        for s_, n_ in launches.items():
+            want = frames if s_ in must else 0
+            check(n_ == want, f"{s_} launched {n_} times in {frames} frames ({label}, {name}), "
+                              f"not {want}")
+        method = Runtime.selected
+        fd, fp, img = method.frame(rr, plain=True)
+        got = rr.last_image
+        check(tuple(got.shape) == (H, W), f"no {H}x{W} image")
+        shown = int((got != BACKGROUND).sum())
+        check(shown > 0, f"{label} {name}: the image is all background")
+        e = same_planes([got, *rr.last_fb], [img, fd, fp],
+                        f"{label} {name}: image or planes != the all-plain frame")
+        args = {k: v for k, v in method.frame_args(rr).items() if k != "hqs"}
+        parts_fn = next(f for c, f in parts_of.items() if isinstance(method, c))
+        points = (int(args["vis"].sum()) * 65536 if "vis" in args else args["points"])
+        results[(label, name)] = dict(
+            frame_ms=statistics.median(rr.frame_ms[WARMUP:]), visible=points, shown=shown,
+            launches=launches, frames=len(rr.frame_ms[WARMUP:]), what="points projected")
+        proj = ""
+        if name == "orbit" and method_name in ("loop_las", "basic", "2021 early-z"):
+            ms = statistics.median([device_ms(lambda: parts_fn(**args))
+                                    for _ in range(KERNEL_REPS)])
+            proj = f"; its projection (torch ops) {ms:.4f} ms device"
+        if (method_name, name) == ("loop_las_hqs", "orbit") and path == las_path:
+            parts = parts_fn(**args)
+            colour = loop_las.colour_parts(parts, args["dev"]["rgba"])
+            planes = u64_min_planes(parts, size)
+            e3 = same_planes(planes, u64_min_planes_plain(parts, size),
+                             "B3 on the loop_las orbit frame's parts")
+            fb = planes[0].contiguous()
+            e4 = same_planes(hqs_sums(colour, fb, size), hqs_sums_plain(colour, fb, size),
+                             "B4 on the loop_las_hqs orbit frame's parts")
+            errs["pcr_u64_min"] = max(errs["pcr_u64_min"], e3)
+            errs["pcr_hqs_sums"] = max(errs["pcr_hqs_sums"], e4)
+            shapes = dict(parts=parts, colour=colour, fb=fb)
+        print(f"[main] {label} {name}: {shown:,} pixels shown, image and last_fb bit-exact "
+              f"vs the all-plain frame (err {e}); {points:,} points projected; launches "
+              f"{ {s_: launches[s_] for s_ in must} } in {frames} frames, no other kernel; "
+              f"app.run {wall:.1f} s with the load{proj} [{card}]")
+        method.las.unload()
+        del rr, method, got, img, fd, fp
+        Runtime.clear()
+        torch.cuda.empty_cache()
+    return shapes
 
 
 def fetch_frame(port: int, view: dict) -> tuple[bytes, str]:
@@ -583,6 +724,7 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.render.raster import (
         BACKGROUND, U64_MIN, edl_shade, image_to_rgb8, project_points, resolve, sort_by_pid,
         swizzle_dims, u64_min_planes, u64_min_planes_plain, unswizzle_plane)
+    from pcrhpg24_tpu_torch.render import raster
     from pcrhpg24_tpu_torch.render.overlay import draw_bounding_boxes
     from pcrhpg24_tpu_torch.utils.devtime import device_ms
     from pcrhpg24_tpu_torch.utils.png import write_png_bytes
@@ -1223,8 +1365,12 @@ def main(argv=None) -> int:
 
     tpc_f32.unload()
 
+    # the `.las` methods, and `basic` on the multi-file scene
+    las_shapes = las_phase(base + ".las", multi_paths(base), results, errs, card)
+
     # ---- 5b. the flagship frame's other outputs, through the app ----
-    output_phase({2: scenes[2], 1: scenes[1], "huffman": huf_path}, results)
+    output_phase({2: scenes[2], 1: scenes[1], "huffman": huf_path, "las": base + ".las"},
+                 results)
     # a --trace run: the profiler's ranges name each launch by its C symbol
     trace_dir = os.path.join(REPO, "out", "chip_smoke_trace")
     rr = app.run(app_argv(scenes[2], "huffman_tpu", VIEWS["orbit"], 2)
@@ -1303,6 +1449,12 @@ def main(argv=None) -> int:
     idx4, vals4 = hqs_rows(*hparts[0], hfb, size)
     idx9, vals9 = hqs_rows(*hs, hfb, size)
     plane4 = torch.zeros((size + 1, 4), dtype=torch.int32, device=DEVICE)
+    lparts, lcolour, lfb = las_shapes["parts"], las_shapes["colour"], las_shapes["fb"]
+    idx3l, keys3l, plane3l = amin_rows(*(torch.cat([p[k].reshape(-1) for p in lparts])
+                                         for k in range(3)), psize)
+    idx4l, vals4l = hqs_rows(*(torch.cat([p[k].reshape(-1) for p in lcolour])
+                               for k in range(3)), lfb, psize)
+    plane4l = torch.zeros((psize + 1, 4), dtype=torch.int32, device=DEVICE)
     timed = {
         "pcr_decode_fixed": (lambda: decode_fixed_batches(*dargs, points=dpts),
                              lambda: decode_fixed_plain(*dargs, points=dpts), None),
@@ -1325,6 +1477,12 @@ def main(argv=None) -> int:
         "pcr_hqs_sums": (lambda: hqs_sums(hparts, hfb, size),
                          lambda: hqs_sums_plain(hparts, hfb, size),
                          lambda: plane4.index_add_(0, idx4, vals4)),
+        "pcr_u64_min:las": (lambda: u64_min_planes(lparts, psize),
+                            lambda: u64_min_planes_plain(lparts, psize),
+                            lambda: plane3l.scatter_reduce_(0, idx3l, keys3l, reduce="amin")),
+        "pcr_hqs_sums:las": (lambda: hqs_sums(lcolour, lfb, psize),
+                             lambda: hqs_sums_plain(lcolour, lfb, psize),
+                             lambda: plane4l.index_add_(0, idx4l, vals4l)),
         "pcr_decode_native": (lambda: decode_native_batches(*native_in, points=64),
                               lambda: decode_native_plain(*native_in, points=64), None),
         "pcr_merge_nk1": (lambda: dense_from_sorted_nk1(*sp, psize),
@@ -1357,6 +1515,8 @@ def main(argv=None) -> int:
         "pcr_u64_min:frame": sum(nbytes(*p) for p in fparts["colour"]) + 8 * size,
         "pcr_u64_min:hqs": sum(nbytes(*p) for p in fparts["hqs"]) + 8 * size,
         "pcr_hqs_sums": nbytes(*hparts[0], hfb) + 16 * size,
+        "pcr_u64_min:las": sum(nbytes(*p) for p in lparts) + 8 * psize,
+        "pcr_hqs_sums:las": sum(nbytes(*p) for p in lcolour) + nbytes(lfb) + 16 * psize,
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
                               + CHUNK * 64 * 3 * 1024 * 4),
         "pcr_merge_nk1": nbytes(*sp) + 8 * psize,
@@ -1377,6 +1537,10 @@ def main(argv=None) -> int:
         "pcr_hqs_sorted": f"one orbit HQS chunk sorted by pid, {hn:,} entries",
         "pcr_tile_sort3": f"{tiles[0].shape[0]:,} tiles of the orbit HQS chunk",
         "pcr_hqs_sums": f"one orbit HQS chunk, {hn:,} entries",
+        "pcr_u64_min:las": f"the loop_las orbit frame's {len(lparts)} part(s), "
+                           f"{sum(p[0].numel() for p in lparts):,} entries into {psize:,} pixels",
+        "pcr_hqs_sums:las": f"the loop_las_hqs orbit frame's {len(lcolour)} part(s), "
+                            f"{sum(p[0].numel() for p in lcolour):,} entries",
         "pcr_decode_huffman": f"the .huffman scene's first {CHUNK} batches at points "
                               f"{dpts}",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
@@ -1397,6 +1561,8 @@ def main(argv=None) -> int:
         "pcr_u64_min": b3_alone([stream]),
         "pcr_u64_min:frame": b3_alone(fparts["colour"]),
         "pcr_u64_min:hqs": b3_alone(fparts["hqs"]),
+        "pcr_u64_min:las": lambda: [U64_MIN.launch(*g, plane_alone.data_ptr(), psize)
+                                    for g in build.part_groups(lparts)],
         "pcr_merge_nk1": lambda: MERGE_NK1.launch(
             sp[0].data_ptr(), sp[1].data_ptr(), sp[2].data_ptr(), plane_alone.data_ptr(),
             sp[0].numel(), psize),
@@ -1497,8 +1663,8 @@ def main(argv=None) -> int:
     for (label, name), res in results.items():
         if "output" in res:  # the [cost] lines below
             continue
-        what = {"parametric": "generated points", "wg": "points"}.get(label,
-                                                                    "visible points")
+        what = res.get("what") or {"parametric": "generated points",
+                                   "wg": "points"}.get(label, "visible points")
         print(f"[time] {label} {name}: device frame {res['frame_ms']:.3f} ms median of "
               f"{res['frames']} (CUDA events), {res['visible']:,} {what}, "
               f"{res['visible'] / res['frame_ms'] / 1e6:.3f} Gpoints/s "
@@ -1526,10 +1692,17 @@ def main(argv=None) -> int:
     wvp = torch.from_numpy((r.camera.proj() @ r.camera.view()).astype(np.float32)).to(DEVICE)
     for what, fn in (("the depth half's unswizzle (need_depth)",
                       lambda: unswizzle_plane(fb_dep, W, H)),
-                     ("EDL (edl_shade)", lambda: edl_shade(orbit_img, lin_d, W, H)),
+                     ("EDL (edl_shade, its exp XLA-CPU's polynomial in f64 FMAs)",
+                      lambda: edl_shade(orbit_img, lin_d, W, H)),
+                     ("EDL with torch.exp in place of xla_exp (not bit-exact)",
+                      lambda: edl_shade(orbit_img, lin_d, W, H)),
                      (f"the overlay of {B} boxes (draw_bounding_boxes)",
                       lambda: draw_bounding_boxes(orbit_img, box_lo, box_hi, wvp, W, H))):
+        if "torch.exp" in what:  # what the bit-exact exp costs, in the same run
+            raster.xla_exp, xla_exp = torch.exp, raster.xla_exp
         ms = statistics.median([device_ms(fn) for _ in range(KERNEL_REPS)])
+        if "torch.exp" in what:
+            raster.xla_exp = xla_exp
         print(f"[cost] {what}: {ms:.4f} ms device (utils/devtime, median of {KERNEL_REPS} "
               f"calls, each behind a spin; orbit, {W}x{H}) [{card}]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

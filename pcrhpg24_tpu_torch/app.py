@@ -4,8 +4,12 @@ Counterpart of `pcrhpg24_tpu/app.py` for `.huffman` scenes (the
 reference's own format: `huffman_mem_iter`, the default, `huffman_hqs`,
 and `huffman_tpu` on the load-time transcode to fbatch), `.tpc` scenes
 (v2 fbatch or v1 tbatch, BC1 colours: the colour frame `huffman_tpu` or
-the HQS blend `huffman_tpu_hqs`) and the procedural `parametric` scene
-(a radius-10 sphere at the origin).  Rendered on one device, offscreen,
+the HQS blend `huffman_tpu_hqs`), `.las` scenes (the source paper's
+baselines, nine methods: `loop_las` (the default), `loop_las2`,
+`loop_las_hqs`, `basic`, the four 2021 variants and `2021 hqs`), `.laz`
+and multi-file scenes (`a.las,b.laz` or a glob: `basic`) and the
+procedural `parametric` scene (a radius-10 sphere at the origin).
+Potree directories are ROADMAP A10.  Rendered on one device, offscreen,
 with PNG and depth (EXR or .npy) export, the reference's debug modes,
 eye-dome lighting and bounding boxes, a timing report, a
 `torch.profiler` trace (`--trace`, Chrome JSON, in place of the
@@ -16,8 +20,9 @@ caught: its error propagates, so a broken C++ codec core cannot leave
 the scene with one method missing unnoticed.
 
 Usage:
-  python -m pcrhpg24_tpu_torch.app --scene out/scene.huffman|out/scene.tpc|parametric
-      [--method huffman_mem_iter|huffman_hqs|huffman_tpu|huffman_tpu_hqs]
+  python -m pcrhpg24_tpu_torch.app --scene out/scene.huffman|out/scene.tpc|x.las|
+      'a.las,b.laz'|'dir/*.las'|parametric
+      [--method huffman_mem_iter|huffman_hqs|huffman_tpu|huffman_tpu_hqs|loop_las|...]
       [--frames 3] [--width 1920 --height 1080]
       [--yaw -0.15 --pitch -0.57 --radius 1000 --target x y z]
       [--lod 0.1] [--screenshot out/frame.png] [--depth out/depth.exr|.npy]
@@ -35,15 +40,6 @@ import sys
 from .engine.debug import Debug
 from .engine.method import Runtime
 from .engine.renderer import Renderer, Setting
-
-
-def _not_yet(scene_path: str) -> str:
-    """The ROADMAP item that ports a scene kind the reference renders."""
-    if scene_path.endswith(".laz") or "," in scene_path or "*" in scene_path:
-        return "multi-file and .laz scenes (las_sparse) are ROADMAP A11"
-    if scene_path.endswith(".las"):
-        return ".las scenes (loop_las, basic, compute_2021) are ROADMAP A11"
-    return "Potree scenes are ROADMAP A10"
 
 
 def build_methods(renderer: Renderer, scene_path: str):
@@ -67,16 +63,42 @@ def build_methods(renderer: Renderer, scene_path: str):
         Runtime.add_method(HuffmanTpu(
             renderer, HuffmanNativeData.create(scene_path, renderer.device)))
         return Runtime.methods
-    if not scene_path.endswith(".tpc"):
-        raise NotImplementedError(_not_yet(scene_path))
-    from .engine.native_resource import NativeLasData
-    from .render.methods.huffman_tpu import HuffmanTpu
-    from .render.methods.huffman_tpu_hqs import HuffmanTpuHqs
+    if scene_path.endswith(".tpc"):
+        from .engine.native_resource import NativeLasData
+        from .render.methods.huffman_tpu import HuffmanTpu
+        from .render.methods.huffman_tpu_hqs import HuffmanTpuHqs
 
-    data = NativeLasData.create(scene_path, renderer.device)
-    Runtime.add_method(HuffmanTpu(renderer, data))
-    Runtime.add_method(HuffmanTpuHqs(renderer, data))
-    return Runtime.methods
+        data = NativeLasData.create(scene_path, renderer.device)
+        Runtime.add_method(HuffmanTpu(renderer, data))
+        Runtime.add_method(HuffmanTpuHqs(renderer, data))
+        return Runtime.methods
+    if scene_path.endswith(".laz") or "," in scene_path or "*" in scene_path:
+        # multi-file / compressed ingestion (LasLoaderSparse equivalent:
+        # modules/compute/LasLoaderSparse.cpp), rendered by `basic`
+        from .engine.las_sparse import LasSparseData
+        from .render.methods.basic import BasicMethod
+
+        Runtime.add_method(BasicMethod(renderer, LasSparseData.create(scene_path,
+                                                                      renderer.device)))
+        return Runtime.methods
+    if scene_path.endswith(".las"):
+        from .engine.las_resources import ComputeLasData, ComputeLasDataBasic, LasStandardData
+        from .render.methods.basic import BasicMethod
+        from .render.methods.compute_2021 import Compute2021, Compute2021Hqs
+        from .render.methods.loop_las import ComputeLoopLas, ComputeLoopLas2, ComputeLoopLasHqs
+
+        d1010 = ComputeLasData.create(scene_path, renderer.device)
+        std = LasStandardData.create(scene_path, renderer.device)
+        Runtime.add_method(ComputeLoopLas(renderer, d1010))
+        Runtime.add_method(ComputeLoopLas2(renderer, d1010))
+        Runtime.add_method(ComputeLoopLasHqs(renderer, d1010))
+        Runtime.add_method(BasicMethod(
+            renderer, ComputeLasDataBasic.create(scene_path, renderer.device)))
+        for name in Compute2021.VARIANTS:
+            Runtime.add_method(Compute2021(renderer, std, name=name))
+        Runtime.add_method(Compute2021Hqs(renderer, std))
+        return Runtime.methods
+    raise NotImplementedError("Potree scenes are ROADMAP A10")
 
 
 def wait_loaded(method, renderer) -> None:

@@ -10,7 +10,7 @@ so the projection kernel serves v1 too; the reference projects v1 with
 XLA ops of the same formula and order.  The stream buffer is sized from
 the header's `max_group_words`, which bounds every batch of the file; a
 batch wider than that fails its packing instead of being cut.  Raw/BC7
-colours are ROADMAP A11.
+colours are ROADMAP A11c.
 
 `HuffmanNativeData` is the reference `.huffman` scene on the same path,
 with the format conversion at load time (the fused C++ transcode of
@@ -57,7 +57,7 @@ class NativeLasData(Resource):
         self.version = self.header.version
         if self.header.color_fmt != "bc1":
             raise NotImplementedError(f"{self.header.color_fmt} colours: their "
-                                      "payload decode is ROADMAP A11")
+                                      "payload decode is ROADMAP A11c")
         self.dataset_points = self.header.num_points
         self.dataset_batches = self.header.num_batches
         nb = self.header.num_batches

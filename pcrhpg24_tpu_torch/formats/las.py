@@ -2,7 +2,7 @@
 
 reference: src/preprocess.cpp:74-171).  Also a minimal LAS 1.2 writer
 used for synthetic test data.  The port's copy of
-`pcrhpg24_tpu/formats/las.py`; LAZ reading is ROADMAP A11.
+`pcrhpg24_tpu/formats/las.py`; LAZ files read through `formats/laz.py`.
 """
 
 from __future__ import annotations
@@ -76,7 +76,9 @@ def read_points(path: str, first: int = 0, count: int | None = None) -> LasPoint
     """
     h = read_header(path)
     if h.compressed:
-        raise NotImplementedError("LAZ point reading is ROADMAP A11")
+        from .laz import read_laz_points
+
+        return read_laz_points(path, first, count)
     n = h.num_points - first if count is None else min(count, h.num_points - first)
     rl = h.record_length
     with open(path, "rb") as f:

@@ -7,7 +7,7 @@ encode each batch's geometry and BC1 colours, and write the file.  The
 output's extension picks the format: `.huffman` (the reference's own,
 `preprocess_las`: per-batch delta + clipped-Huffman streams in warp
 order) or `.tpc` (`preprocess_las_tpc`: fbatch v2, or tbatch v1 with
-the 4th argument `huffman`).  Raw and BC7 colours are ROADMAP A11.
+the 4th argument `huffman`).  Raw and BC7 colours are ROADMAP A11c.
 
 Usage: python -m pcrhpg24_tpu_torch.preprocess input.las out.huffman|out.tpc [sort 0|1] [fixed|huffman]
 """
@@ -136,7 +136,7 @@ def preprocess_las_tpc(las_path: str, out_path: str, sort: bool = True,
     tbatch blobs (~13% smaller, slower decode).  Colours are BC1.
     """
     if color_fmt != "bc1":
-        raise NotImplementedError(f"{color_fmt} colours are ROADMAP A11")
+        raise NotImplementedError(f"{color_fmt} colours are ROADMAP A11c")
     if codec not in ("fixed", "huffman"):
         raise ValueError(f"unknown codec {codec!r}")
     encode = encode_fixed_batch if codec == "fixed" else encode_native_batch

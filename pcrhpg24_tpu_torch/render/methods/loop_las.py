@@ -1,17 +1,84 @@
-"""The colour lookup of the `loop_las` family.
+"""`loop_las` family — adaptive 10/20/30-bit fixed-point methods.
 
-Counterpart of `resolve_indexed` in
-`pcrhpg24_tpu/render/methods/loop_las.py` (:282-287), which the `.wg`
-method shares.  The `loop_las` methods themselves, their resources and
-their HQS variant are ROADMAP A11.
+Counterpart of `pcrhpg24_tpu/render/methods/loop_las.py`, after the
+source system's modules/compute_loop_las (+las2) and
+compute_loop_las_hqs: per batch, a precision level is chosen on the host
+from the projected box size (render.cs:235-271: level 0 keeps 30 bits,
+level 1 20, levels 2-4 10), coordinates unpack from up to three
+10-10-10 planes batch-relative, and points rasterize with the point
+*index* as payload (render.cs:527-533); the resolve looks colours up by
+index (`resolve_indexed`, which the `.wg` method shares).
+
+The reference resolves each 256-batch chunk by a 3-key sort and a head
+scatter merged into the running planes; here every chunk's (pid, depth,
+index) part of a frame goes to B3 (`raster.u64_min_planes`) in one
+launch, in linear pixel ids, which gives the same u64 (depth << 32 |
+index) minimum.  The padding repeats a batch's last point under new
+indices, so the index breaks depth ties as the sort does.  The HQS
+frame resolves the same parts with B3 as its depth prepass, then B4
+(`hqs.hqs_sums`) over them with the colour as the payload: B4's accept
+test `w <= old * 1.01f` and byte sums are the reference's
+`hqs_chunk_101010`.
+
+The reference uploads per-point level, visibility and box planes each
+frame (`np.repeat` over the padded scene); here the per-batch arrays
+go up in one packed copy and broadcast over each batch's 65,536 points,
+which gives the same numbers.  A frame projects the loaded batches only:
+the reference masks every entry past them (visibility False).  The
+10-10-10 unpack and projection are int32 and f32 torch ops in the
+reference's operation order, unfused.
+
+The reference's 30-bit unpack has a copy-paste defect (render.cs:
+456-458 ORs X_12 into Y and Z); both implement the evident intent.
+`loop_las2`'s uvec4 double-buffered prefetch (compute_loop_las2/
+render.cs:300-446) is a memory-coalescing variant with identical
+numerics, registered as an alias.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ...constants import POINTS_PER_WORKGROUP, RENDER_CHUNK_BATCHES
+from ...engine.debug import Debug
+from ...engine.method import Method, Runtime
 from ...u32 import widen
-from ..raster import BACKGROUND, EMPTY
+from ..camera import batches_in_frustum, frustum_planes
+from ..hqs import hqs_sums, hqs_sums_plain, resolve_hqs
+from ..raster import (
+    BACKGROUND,
+    EMPTY,
+    project_points,
+    resolve,
+    u64_min_planes,
+    u64_min_planes_plain,
+)
+
+CHUNK_PTS = RENDER_CHUNK_BATCHES * POINTS_PER_WORKGROUP
+STEPS_30BIT = float(1 << 30)
+STEPS_10BIT = 1024.0
+MASK = 1023
+
+
+def precision_levels(view, proj, bbox_min, bbox_max, width, height):
+    """Per-batch level 0..4 (render.cs:235-271), host f64."""
+    center = 0.5 * (bbox_min + bbox_max)
+    radius = np.linalg.norm(bbox_min - bbox_max, axis=1)
+    ch = np.concatenate([center, np.ones((len(center), 1))], 1)
+    vc = ch @ view.T
+    ve = vc + np.stack([radius, *([np.zeros_like(radius)] * 3)], 1)
+    pc = vc @ proj.T
+    pe = ve @ proj.T
+    sc = 0.5 * (pc[:, :2] / pc[:, 3:4] + 1) * [width, height]
+    se = 0.5 * (pe[:, :2] / pe[:, 3:4] + 1) * [width, height]
+    ps = np.linalg.norm(se - sc, axis=1)
+    level = np.full(len(ps), 0, np.int32)
+    level[ps < 10000] = 1
+    level[ps < 500] = 2
+    level[ps < 200] = 3
+    level[ps < 100] = 4
+    return level
 
 
 def resolve_indexed(fb_p, rgba, width: int, height: int):
@@ -25,3 +92,202 @@ def resolve_indexed(fb_p, rgba, width: int, height: int):
     color = rgba[torch.clamp(widen(fb_p), max=rgba.shape[0] - 1)]
     img = torch.where(fb_p != EMPTY, color, torch.full_like(color, BACKGROUND))
     return img.reshape(height, width)
+
+
+def point_index(base_index: int, shape, device):
+    """Each point's global index (int32, the payload) over `shape`."""
+    n = int(np.prod(shape))
+    return torch.arange(base_index, base_index + n, dtype=torch.int32,
+                        device=device).reshape(shape)
+
+
+def mask_pid(pid, keep, size: int):
+    """`pid` where `keep`, else `size` (dropped)."""
+    return torch.where(keep, pid, torch.full_like(pid, size))
+
+
+def project_101010(xyz4, xyz8, xyz12, level, bmin, bmax, transform, base_index: int,
+                   width: int, height: int, mask):
+    """(pid, depth, index) of packed points (`loop_las.py:225-279`).
+
+    xyz4/8/12: int32 planes of one shape, here (nb, 65536) for nb
+    batches; level (int32), mask (bool) and each axis of the 3-tuples
+    bmin, bmax (f32) broadcast against them (per batch: (nb, 1)).  Level
+    0 joins all three planes (30 bits), level 1 the first two (20),
+    higher levels the first only and divide its top 10 bits by 1024;
+    then `Xs * (box / denom) + bmin`, and `raster.project_points`' f32
+    projection.  All int32: a plane field is 10 bits, X/Y/Z 30."""
+
+    def unpack(plane, shift):
+        return tuple(((plane >> s) & MASK) << shift for s in (0, 10, 20))
+
+    x4, y4, z4 = unpack(xyz4, 20)
+    x8, y8, z8 = unpack(xyz8, 10)
+    x12, y12, z12 = unpack(xyz12, 0)
+    lvl = level
+    lo = lvl >= 2
+    denom = torch.where(lo, STEPS_10BIT, STEPS_30BIT).to(torch.float32)
+    pos = []
+    for a4, a8, a12, mn, mx in ((x4, x8, x12, bmin[0], bmax[0]), (y4, y8, y12, bmin[1], bmax[1]),
+                                (z4, z8, z12, bmin[2], bmax[2])):
+        a = torch.where(lvl == 0, a4 | a8 | a12, torch.where(lvl == 1, a4 | a8, a4))
+        s = torch.where(lo, a >> 20, a).to(torch.float32)
+        pos.append(s * ((mx - mn) / denom) + mn)
+    pid, dep = project_points(*pos, transform, width, height)
+    pid = mask_pid(pid, mask, width * height)
+    return pid, dep, point_index(base_index, pid.shape, pid.device)
+
+
+def colour_parts(parts, rgba):
+    """Each (pid, depth, index) part of a frame with its points' colours
+    as the payload (B4's input): part k holds the points from
+    k * CHUNK_PTS."""
+    return [(pid, dep, rgba[k * CHUNK_PTS:k * CHUNK_PTS + pid.numel()].view(pid.shape))
+            for k, (pid, dep, _idx) in enumerate(parts)]
+
+
+def resolve_parts(parts, rgba, width: int, height: int, hqs: bool = False,
+                  plain: bool = False):
+    """A frame's (pid, depth, index) parts, linear pids, part k holding
+    the points from k * CHUNK_PTS -> (fb_depth, fb_payload, image), or
+    in HQS (fb_depth, acc_n, image).
+
+    The u64-min planes come from B3 in one launch; the colour image is
+    `resolve_indexed` of the payload plane over the whole `rgba` buffer.
+    HQS hands B4 the same parts with each point's colour as the payload
+    and the depth plane as its prepass, then divides (`resolve_hqs`).
+    `plain=True` runs the plain versions instead of B3 and B4."""
+    size = width * height
+    if not parts:
+        empty = torch.full((size,), EMPTY, dtype=torch.int32, device=rgba.device)
+        if hqs:
+            return (empty, torch.zeros_like(empty),
+                    torch.full((height, width), BACKGROUND, dtype=torch.int32,
+                               device=rgba.device))
+        return empty, empty, resolve(empty, width, height)
+    fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
+    if not hqs:
+        return fb_d, fb_p, resolve_indexed(fb_p, rgba, width, height)
+    fb_d = fb_d.contiguous()  # B4 reads a contiguous plane
+    acc = (hqs_sums_plain if plain else hqs_sums)(colour_parts(parts, rgba), fb_d, size)
+    return fb_d, acc[3], resolve_hqs(*acc, width, height)
+
+
+def loop_las_parts(dev, level, vis, bmin, bmax, transform, batches: int, width: int,
+                   height: int):
+    """The (pid, depth, index) part of each 256-batch chunk of the first
+    `batches` batches (`raster_chunk_101010`, `loop_las.py:63-74`).
+
+    dev: `ComputeLasData.dev`; level (B,) int32, vis (B,) bool, bmin and
+    bmax (B, 3) f32: per loaded batch; transform (4, 4) f32 wvp."""
+    P = POINTS_PER_WORKGROUP
+    parts = []
+    for s in range(0, batches * P, CHUNK_PTS):
+        b0, b1 = s // P, min(s + CHUNK_PTS, batches * P) // P
+        sl = slice(s, b1 * P)
+        planes = [dev[k][sl].view(b1 - b0, P) for k in ("xyz4", "xyz8", "xyz12")]
+        per_axis = lambda box: tuple(box[b0:b1, k:k + 1] for k in range(3))
+        parts.append(project_101010(*planes, level[b0:b1, None], per_axis(bmin),
+                                    per_axis(bmax), transform, s, width, height,
+                                    vis[b0:b1, None]))
+    return parts
+
+
+def loop_las_frame(dev, level, vis, bmin, bmax, transform, batches: int, width: int,
+                   height: int, hqs: bool = False, plain: bool = False):
+    """One frame -> (fb_depth, fb_payload or acc_n, image), the planes
+    (H*W,) int32 u32 bits, linear: `loop_las_parts` resolved by
+    `resolve_parts`; `hqs` blends (`hqs_chunk_101010`,
+    `ComputeLoopLasHqs.render`)."""
+    parts = loop_las_parts(dev, level, vis, bmin, bmax, transform, batches, width, height)
+    return resolve_parts(parts, dev["rgba"], width, height, hqs, plain)
+
+
+class LasMethod(Method):
+    """Resource switching and the frame of the `.las` methods: each
+    names its frame function (`FRAME`) and builds its arguments
+    (`frame_args`)."""
+
+    HQS = False
+    FRAME = None
+
+    def __init__(self, renderer, las, name: str):
+        self.name = name
+        self.las = las
+        self.renderer = renderer
+
+    def update(self, renderer):
+        if Runtime.resource is not self.las:
+            if Runtime.resource is not None:
+                Runtime.resource.unload(renderer)
+            self.las.load(renderer)
+            Runtime.resource = self.las
+
+    def frame(self, renderer, plain: bool = False):
+        """-> (fb_depth, fb_payload or acc_n, image) of this frame;
+        `plain=True` builds it from the plain versions alone."""
+        return type(self).FRAME(**self.frame_args(renderer), plain=plain)
+
+    def render(self, renderer):
+        self.las.process(renderer)
+        fb_d, fb_p, img = self.frame(renderer)
+        renderer.last_fb = (fb_d, fb_p)
+        return img
+
+    def wvp(self, renderer) -> np.ndarray:
+        cam = renderer.camera
+        return (cam.proj() @ cam.view()).astype(np.float32)
+
+
+class ComputeLoopLas(LasMethod):
+    FRAME = staticmethod(loop_las_frame)
+
+    def __init__(self, renderer, las, name="loop_las"):
+        super().__init__(renderer, las, name)
+        self.description = "10-10-10 adaptive precision (2022 paper path)"
+        self.group = "10-10-10 bit"
+
+    def frame_args(self, renderer) -> dict:
+        """Keyword arguments of `loop_las_frame`: the host's cull and
+        precision levels of the loaded batches, their boxes and the wvp
+        in one packed host -> device copy."""
+        las = self.las
+        W, H = renderer.width, renderer.height
+        cam = renderer.camera
+        view, proj = cam.view(), cam.proj()
+        B = las.num_batches_loaded
+        bmin, bmax = las.bbox_min[:B], las.bbox_max[:B]
+        if Debug.frustum_culling_enabled and Debug.update_frustum:
+            vis = batches_in_frustum(frustum_planes(proj @ view), bmin, bmax)
+        else:
+            vis = np.ones(B, bool)
+        level = precision_levels(view, proj, bmin, bmax, W, H)
+        packed = torch.from_numpy(np.concatenate([
+            (proj @ view).astype(np.float32).ravel(), bmin.ravel(), bmax.ravel(),
+            level.astype(np.int32).view(np.float32),
+            vis.astype(np.int32).view(np.float32)])).to(las.device)
+        return dict(
+            dev=las.dev, transform=packed[:16].reshape(4, 4),
+            bmin=packed[16:16 + 3 * B].reshape(B, 3),
+            bmax=packed[16 + 3 * B:16 + 6 * B].reshape(B, 3),
+            level=packed[16 + 6 * B:16 + 7 * B].view(torch.int32),
+            vis=packed[16 + 7 * B:].view(torch.int32) != 0,
+            batches=B, width=W, height=H, hqs=self.HQS)
+
+
+class ComputeLoopLas2(ComputeLoopLas):
+    """Alias of loop_las (see the module docstring on why)."""
+
+    def __init__(self, renderer, las):
+        super().__init__(renderer, las, name="loop_las2")
+        self.description = "10-10-10 adaptive precision (las2 alias)"
+
+
+class ComputeLoopLasHqs(ComputeLoopLas):
+    """HQS over the 10-10-10 format (modules/compute_loop_las_hqs)."""
+
+    HQS = True
+
+    def __init__(self, renderer, las):
+        super().__init__(renderer, las, name="loop_las_hqs")
+        self.description = "10-10-10 adaptive precision, HQS average blend"

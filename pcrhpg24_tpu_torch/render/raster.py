@@ -207,11 +207,48 @@ def overdraw_image(counts, width: int, height: int):
                        torch.full_like(color, BACKGROUND)).reshape(height, width)
 
 
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+EXP_POLY = tuple(_f32(v) for v in (8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+                                   5.0000001201e-1))
+
+
+def _fma(a, b, c):
+    """f32 a * b + c rounded once: the f32 product is exact in f64."""
+    c = c.double() if torch.is_tensor(c) else c
+    return (a.double() * b + c).float()
+
+
+def xla_exp(x):
+    """XLA-CPU's f32 `exp`, bit for bit, in f32 torch ops (the Cephes
+    polynomial that XLA emits, with every multiply-add fused and results
+    below 2**-126 flushed to zero): clamp x to [-87.8, 88.8],
+    n = floor(x log2(e) + 0.5) clamped to [-127, 127], r = x - n ln(2)
+    in two steps, a degree-5 polynomial in r, then times 2**n built
+    from its exponent bits.  Equal to `jnp.exp` at O0 on every f32 but
+    the NaNs (a scan of all of them; EDL reaches [-104, 0]), and held to
+    it by `tests/test_torch_outputs.py`."""
+    x = torch.clamp(x, _f32(-87.8), _f32(88.8))
+    n = torch.clamp(torch.floor(_fma(x, _f32(1.44269504088896341), 0.5)), -127.0, 127.0)
+    r = _fma(n, _f32(-0.693359375), x)
+    r = _fma(n, _f32(2.12194440e-4), r)
+    z = _fma(r, _f32(1.9875691500e-4), _f32(1.3981999507e-3))
+    for p in EXP_POLY:
+        z = _fma(z, r, p)
+    z = 1.0 + _fma(z, r * r, r)
+    # 2**n from its exponent bits: 0 at n = -127
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    y = z * pow2
+    return torch.where(y < _f32(2.0 ** -126), torch.zeros_like(y), y)
+
+
 def edl_shade(img, fb_d, width: int, height: int, strength: float = 0.0005):
     """Eye-dome lighting (`raster.py:233-259`, after the reference's
     resolve.cs:143-188): per pixel s = the sum over the 3x3 neighbourhood,
     row-major from (-1, -1), of max(0, depth - neighbour depth), then
-    shade = exp(-(s / 9) * 300 * strength) and each RGB channel
+    shade = exp(-(s / 9) * 300 * strength) (`xla_exp`) and each RGB channel
     min(ch * shade, 255) truncated, all in f32.  Empty pixels and the
     border count as depth +inf; an empty pixel keeps its colour (its
     inf - inf NaN is masked out).  `img` (H, W) int32, `fb_d` (W*H,)
@@ -227,7 +264,7 @@ def edl_shade(img, fb_d, width: int, height: int, strength: float = 0.0005):
             nb = pad[1 + oy:1 + oy + height, 1 + ox:1 + ox + width]
             s = s + (d - nb).clamp_min(0.0)
     # Python floats that f32 holds exactly: no host -> device copy
-    shade = torch.exp(-(s * NINTH) * 300.0 * float(np.float32(strength)))
+    shade = xla_exp(-(s * NINTH) * 300.0 * float(np.float32(strength)))
 
     def ch(sh):
         v = ((img >> sh) & 0xFF).to(torch.float32) * shade

@@ -8,12 +8,13 @@ device intervals), the device idle share (1 - busy / wall), each device
 kernel's time and launch count, the host's self time in each torch op
 and CUDA runtime call that takes the most of it (what the host spends
 its share of the frame on), and the peak device memory.  Scenes: a
-`.huffman` or `.tpc` file or `parametric` through the app's methods, or a `.wg` file
+`.huffman`, `.tpc` or `.las` file, a multi-file scene or `parametric`
+through the app's methods, or a `.wg` file
 through `loop_nodes_compressed` (which the app does not register, as
 the reference's does not).  Run on a host with a card:
 
     python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc|out/s.huffman|out/s.wg \
-        [--method huffman_tpu|huffman_tpu_hqs|huffman_mem_iter|huffman_hqs] \
+        [--method huffman_tpu|huffman_tpu_hqs|huffman_mem_iter|huffman_hqs|loop_las|...] \
         [--view orbit] [--frames 5]
     python -m pcrhpg24_tpu_torch.tools.profile_frame --scene parametric --view near
     python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc \

@@ -42,7 +42,7 @@ from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu import HuffmanTpu, render_frame_native
 from pcrhpg24_tpu_torch.engine.viewer import ViewerServer
 from pcrhpg24_tpu_torch.u32 import to_u32
-from tests.torch_fixtures import edl_close, one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 320, 180
 O0 = {"xla_backend_optimization_level": 0}
@@ -135,10 +135,8 @@ def test_app_flags_write_the_reference_png_and_depth(scene, tmp_path, case):
     assert args["cull"] == ("--no-frustum-culling" not in flags)
     img, fb_d = _ref_image(ref, args, mode, boxes, edl)
     rgb = np.asarray(ref_raster.image_to_rgb8(img))
-    if edl:  # EDL's stated tolerance (`edl_close`)
-        edl_close(to_u32(rr.last_image), np.asarray(img))
-    else:
-        assert png.read_bytes() == write_png_bytes(rgb)
+    np.testing.assert_array_equal(to_u32(rr.last_image), np.asarray(img))
+    assert png.read_bytes() == write_png_bytes(rgb)
     assert (np.asarray(img) != 0x00443322).sum() > 500
     if depth:
         want = RefRenderer(W, H)

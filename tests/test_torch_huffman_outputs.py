@@ -33,7 +33,7 @@ from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
 from pcrhpg24_tpu_torch.engine.resource import HuffmanLasData
 from pcrhpg24_tpu_torch.render.methods.huffman_mem_iter import HuffmanMemIter
 from pcrhpg24_tpu_torch.u32 import to_u32
-from tests.torch_fixtures import edl_close, one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 256, 144
 O0 = {"xla_backend_optimization_level": 0}
@@ -114,9 +114,7 @@ def test_mem_iter_outputs_equal_reference(scene, monkeypatch, case):
     if "edl" in flags:  # the reference's renderer shades its loop's image
         want = np.asarray(ref_raster.edl_shade(jnp.asarray(want), jnp.asarray(want_d),
                                                W, H, RefDebug.edl_strength))
-        edl_close(to_u32(r.last_image), want)
-    else:
-        np.testing.assert_array_equal(to_u32(r.last_image), want)
+    np.testing.assert_array_equal(to_u32(r.last_image), want)
     assert (want != 0x00443322).sum() > 500
     if case == "num_points":
         assert m.frame_args(r)["points"] < 64

@@ -140,10 +140,7 @@ def test_cpu_tensors_never_launch():
     assert build.KERNELS["pcr_u64_min"].launches == before
 
 
-@pytest.mark.parametrize("scene,item", [
-    ("x.las", "A11"), ("x.laz", "A11"),
-    ("a.las,b.las", "A11"), ("tiles/*.las", "A11"), ("potree_dir", "A10"),
-])
+@pytest.mark.parametrize("scene,item", [("potree_dir", "A10")])
 def test_unported_scene_kinds_name_their_roadmap_item(scene, item):
     r = Renderer(64, 32, device="cpu")
     with pytest.raises(NotImplementedError, match=item):

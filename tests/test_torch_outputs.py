@@ -16,7 +16,8 @@ bounding boxes and the depth files.
   `show_num_points`.
 * `edl_shade` on crafted planes (flat, a step edge, empty pixels and
   neighbours, the border, rough depths, `tests/test_raster.py:103`'s
-  cases) against the reference's.
+  cases) against the reference's, and its `exp` (`xla_exp`) against
+  XLA-CPU's at O0 on seeded arguments and the edges.
 * `draw_bounding_boxes` on boxes in view, behind the camera, crossing
   the frustum and degenerate, against the reference's (O0).
 * `Renderer.save_depth_exr` writes the reference renderer's `.exr` and
@@ -49,10 +50,10 @@ from pcrhpg24_tpu_torch.render.decode_fixed import decode_fixed_plain
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu import render_frame_native
 from pcrhpg24_tpu_torch.render.overlay import draw_bounding_boxes, edge_steps
 from pcrhpg24_tpu_torch.render.project import project_plain
-from pcrhpg24_tpu_torch.render.raster import edl_shade
+from pcrhpg24_tpu_torch.render.raster import edl_shade, xla_exp
 from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
 from pcrhpg24_tpu_torch.utils.exr import read_exr_z
-from tests.torch_fixtures import edl_close, one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 320, 180
 O0 = {"xla_backend_optimization_level": 0}
@@ -205,13 +206,52 @@ def _edl_case(kind, rng):
     return img, bits.reshape(-1)
 
 
+EXP_EDGES = np.array([0.0, -0.0, -87.33, -87.8, -88.0, -104.0, 88.8, -np.inf,
+                      -1e-45, -(2.0 ** -126), -87.336544, -0.5, 0.5], np.float32)
+
+
+def test_xla_exp_equals_jnp_exp_per_op():
+    """EDL's `exp` (ROADMAP C7): `xla_exp` equals XLA-CPU's f32 `jnp.exp`
+    compiled at O0 bit for bit, on 1M seeded arguments over EDL's range
+    [-104, 0] (their f32 bit patterns drawn uniformly, so every binade
+    counts) and on the edges: zeros, the flush to zero below 2**-126, the
+    clamps at -87.8 and 88.8 (inf), -inf and tiny arguments."""
+    rng = np.random.default_rng(77)
+    lo, hi = np.float32(-0.0).view(np.uint32), np.float32(-104.0).view(np.uint32)
+    x = rng.integers(lo, hi, 1 << 20, endpoint=True).astype(np.uint32).view(np.float32)
+    x = np.concatenate([x, EXP_EDGES])
+    got, want = _exp_pair(x)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (want == 0).sum() > 1000 and np.isinf(want).sum() == 1  # both ends reached
+
+
+def _exp_pair(x):
+    """(`xla_exp`, `jnp.exp` at O0) of the f32 array `x`, as numpy."""
+    want = np.asarray(jax.jit(jnp.exp).lower(x).compile(compiler_options=O0)(x))
+    return xla_exp(torch.from_numpy(x)).numpy(), want
+
+
+def scan_exp(step: int = 1 << 24) -> tuple[int, int]:
+    """Every f32 bit pattern, in chunks of `step`, through `_exp_pair`
+    -> (arguments compared, those that differ; NaNs are left out).
+    Minutes on a CPU: `python -m tests.test_torch_outputs`."""
+    compared = differ = 0
+    for lo, hi in ((0, 0x7F800000), (0x80000000, 0xFF800000)):  # +0..+inf, -0..-inf
+        for s in range(lo, hi + 1, step):
+            x = np.arange(s, min(s + step, hi + 1), dtype=np.uint64).astype(np.uint32)
+            got, want = _exp_pair(x.view(np.float32))
+            compared += x.size
+            differ += int((got.view(np.uint32) != want.view(np.uint32)).sum())
+    return compared, differ
+
+
 @pytest.mark.parametrize("kind", ["flat", "step", "empty", "border", "rough"])
 def test_edl_shade_equals_reference(kind):
-    """Bit-exact on these planes, held to `edl_close` for any input."""
+    """Bit-exact against the reference's EDL."""
     img, bits = _edl_case(kind, np.random.default_rng(len(kind)))
     want = np.asarray(ref_raster.edl_shade(jnp.asarray(img), jnp.asarray(bits), W, H, 0.0005))
     got = to_u32(edl_shade(from_u32(img), from_u32(bits), W, H, 0.0005))
-    edl_close(got, want)
+    np.testing.assert_array_equal(got, want)
     if kind == "flat":
         np.testing.assert_array_equal(got, img)
     if kind == "step":
@@ -288,3 +328,8 @@ def test_save_depth_equals_reference_renderer(tmp_path):
     port.last_fb = (None, None)
     with pytest.raises(RuntimeError, match="capture_depth"):
         port.save_depth_exr(str(tmp_path / "none.npy"))
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    print("xla_exp vs jnp.exp at O0: %d f32 arguments compared, %d differ" % scan_exp())

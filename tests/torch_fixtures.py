@@ -1,7 +1,6 @@
 """Fixtures and checks shared by the PyTorch port's test files
 (`test_torch_*.py`)."""
 
-import numpy as np
 import pytest
 import torch
 
@@ -17,14 +16,3 @@ def one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-
-def edl_close(got, want):
-    """EDL's tolerance: XLA-CPU's and torch's f32 `exp` differ by one ulp
-    on some arguments (~9% of random ones, measured), and a channel
-    truncated after `ch * shade` can then differ by 1.  Each channel
-    within 1, on at most 0.1% of the pixels; prints the share found."""
-    ne = got != want
-    print(f"EDL: {ne.mean():.6f} of the pixels differ")
-    assert ne.mean() <= 1e-3
-    for sh in (0, 8, 16, 24):
-        assert np.abs((got >> sh & 255).astype(int) - (want >> sh & 255)).max() <= 1
