@@ -3,7 +3,7 @@
 
 Run from the repo root on a host with one NVIDIA H100:
 
-    python3 chip_smoke.py [--batches 256]
+    python3 chip_smoke.py [--batches 256] [--potree-points 5e7] [--potree-budget N]
 
 Phases, each of which exits non-zero on failure:
  1. environment: card name and power limit, torch, CUDA, nvcc;
@@ -52,7 +52,10 @@ Phases, each of which exits non-zero on failure:
     pixels, depths tied so the payload decides, all-ones keys, sentinel
     pids, depths falling and rising along the stream, a ragged length),
     each split into 4 uneven parts and into 70 (two launches), in both
-    part orders, and on 2**24 + 1 entries of one pixel; B10 on crafted
+    part orders, and on 2**24 + 1 entries of one pixel; B3 and B4 on a
+    crafted Potree part (`crafted.potree_part`: 2,000 nodes, each a run of
+    nearby pixels in random order, culled nodes and budget tails), in
+    one call and in two groups into a running plane and accumulator; B10 on crafted
     tiles (`crafted.tile_keys`: one triple per tile, sorted, reverse
     sorted, k0 and k1 tied so that k2 decides, INT32_MIN, INT32_MAX and
     the sign boundary in every key, repeated triples, the HQS sentinel
@@ -89,7 +92,17 @@ Phases, each of which exits non-zero on failure:
     and `basic` on the multi-file scene at the orbit view: B3 exactly
     once a frame, B4 exactly once an HQS frame and no other kernel; B3
     and B4 also held against their plain versions on the `loop_las_hqs`
-    orbit frame's parts.  Each listed kernel must have launched (B3
+    orbit frame's parts; the Potree scene written by the port's
+    `synth_potree` (`--potree-points`, under `--potree-budget` resident
+    points) and loaded once through the app's `build_methods` and
+    `wait_loaded`, with a mid-load frame of each method, then
+    `loop_nodes` (B3 alone) and `loop_nodes_hqs` (B3 and B4 alone) through
+    `Renderer.loop` at three views (the reference's 1B-point run's steady
+    camera, an overview, and a corner close-up that must leave a
+    16.7M-point chunk culled), unbudgeted and at `Debug.node_budget = 2`,
+    whose compact frame must also equal the masked frame; B3 and B4
+    held against their plain versions on the steady frame's parts.
+    Each listed kernel must have launched (B3
     exactly once per frame on the `.tpc`, `.huffman` and `.las` paths),
     and each image (and on the `.las` paths each plane left in
     `last_fb`) must show points and equal, bit for bit, the frame built
@@ -115,7 +128,8 @@ Phases, each of which exits non-zero on failure:
     orbit chunk; B6 at the parametric frame's); B2 in colour, HQS and
     batch-payload mode (three rows); B3 per chunk and over the orbit
     frame's parts in one call, colour and HQS (three rows); B3 and B4
-    over the `loop_las` orbit frame's parts (two more rows); the device
+    over the `loop_las` orbit frame's parts (two more rows), and over the
+    `loop_nodes` steady frame's parts (two more); the device
     time of the `.las` projections (torch ops) of `loop_las`, `basic`
     and `2021 early-z` at the orbit view; B4's and B3's
     planes handed on as
@@ -207,6 +221,16 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                          "pcrhpg24_tpu_torch/csrc/hqs.cu",
                          "pcrhpg24_tpu/render/pallas_hqs.py:185 (on the .las path: XLA "
                          "scatter-adds, methods/loop_las.py:415-418)"),
+    # and where the Potree frames' resolves stand: a frame's live chunks,
+    # each a part of node-ordered points
+    "pcr_u64_min:potree": ("B3 u64-min resolve, one loop_nodes frame's parts",
+                           "pcrhpg24_tpu_torch/csrc/raster.cu",
+                           "pcrhpg24_tpu/render/pallas_merge.py:467 (dense_from_sorted_rows, "
+                           "methods/loop_nodes.py:116)"),
+    "pcr_hqs_sums:potree": ("B4 HQS blend sums, one loop_nodes_hqs frame's parts",
+                            "pcrhpg24_tpu_torch/csrc/hqs.cu",
+                            "pcrhpg24_tpu/render/pallas_hqs.py:185 (hqs_sums_from_rows, "
+                            "methods/loop_nodes.py:361)"),
     "pcr_decode_native": ("B5 tbatch decode", "pcrhpg24_tpu_torch/csrc/decode_native.cu",
                           "pcrhpg24_tpu/render/pallas_decode.py:55"),
     # B6' (pallas_merge.py:278) is the same function: this kernel serves both
@@ -259,7 +283,19 @@ OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2"
          "pcr_hqs_sorted": None, "pcr_tile_sort3": None,
          "pcr_decode_huffman": ("colour huffman", "orbit"),
          "pcr_u64_min:las": ("las loop_las", "orbit"),
-         "pcr_hqs_sums:las": ("las loop_las_hqs", "orbit")}
+         "pcr_hqs_sums:las": ("las loop_las_hqs", "orbit"),
+         "pcr_u64_min:potree": ("potree loop_nodes", "steady"),
+         "pcr_hqs_sums:potree": ("potree loop_nodes_hqs", "steady")}
+# the synthetic Potree scene's cameras (`tools/synth_potree.py`, 4096 m): the
+# steady camera of the reference's 1B-point run (experiments/r5_potree_1b.py),
+# an overview, and a close-up of the (700, 700) corner on the terrain, which
+# leaves the octants far from it, and the chunks that hold them, out
+POTREE_VIEWS = {
+    "steady": dict(yaw=0.45, pitch=-0.75, radius=6500.0, target=(2048.0, 2048.0, 500.0)),
+    "overview": dict(yaw=-0.6, pitch=-1.2, radius=12000.0, target=(2048.0, 2048.0, 900.0)),
+    "corner": dict(yaw=0.8, pitch=-0.5, radius=250.0, target=(700.0, 700.0, 1173.76)),
+}
+POTREE_DENSITY = 2.0  # Debug.node_budget of the reference's 1B-point run
 # B12's arguments: the whole flat buffers, then each batch's rows
 REF_KEYS = ("encoding", "enc_offsets", "cluster_sizes", "separate", "sep_offsets",
             "separate_sizes", "table_values", "table_cw_len", "start_values")
@@ -660,6 +696,161 @@ def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) 
     return shapes
 
 
+def potree_scene(points: int) -> tuple[str, float]:
+    """The synthetic Potree scene of `points` points (the reference's
+    `tools/synth_potree.py`, the port's copy), written under out/ and
+    cached -> (its directory, seconds writing it, 0 when cached)."""
+    import shutil
+
+    from pcrhpg24_tpu_torch.tools.synth_potree import synth_potree
+
+    path = os.path.join(REPO, "out", f"chip_smoke_potree_{points}")
+    if os.path.exists(os.path.join(path, "metadata.json")):
+        return path, 0.0
+    t0 = time.perf_counter()
+    shutil.rmtree(path + ".tmp", ignore_errors=True)
+    synth_potree(path + ".tmp", points, verbose=False)
+    os.replace(path + ".tmp", path)
+    return path, time.perf_counter() - t0
+
+
+def potree_phase(path: str, budget, results: dict, errs: dict, card: str) -> dict:
+    """`loop_nodes` and `loop_nodes_hqs` on a Potree scene through the
+    app's `build_methods`, `wait_loaded` and `Renderer.loop`, one load of
+    the scene (capped at `budget` resident points) for every run: one
+    mid-load frame of each method, then at `POTREE_VIEWS`, unbudgeted
+    and at `Debug.node_budget = POTREE_DENSITY`, the warm and timed
+    frames.  Each run resets the launch counts and reads them after: the
+    colour frame launches B3 alone, the HQS frame B3 and B4 alone.  Each
+    image and the planes left in `last_fb` equal the frame built from
+    the plain versions; a budgeted frame (the compact gather) equals the
+    reference's masked frame.  Frame times into
+    `results[(f"potree {method}[ budget]", view)]`.  -> the steady view's
+    unbudgeted parts, their colour parts and depth plane (the kernels
+    line's Potree rows)."""
+    import torch
+
+    from pcrhpg24_tpu_torch import app
+    from pcrhpg24_tpu_torch.engine.debug import Debug
+    from pcrhpg24_tpu_torch.engine.method import Runtime
+    from pcrhpg24_tpu_torch.engine.potree_resource import PotreeData
+    from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
+    from pcrhpg24_tpu_torch.kernels import build
+    from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
+    from pcrhpg24_tpu_torch.render.methods.loop_nodes import CHUNK_PTS, node_parts
+    from pcrhpg24_tpu_torch.render.raster import (BACKGROUND, u64_min_planes,
+                                                  u64_min_planes_plain)
+
+    frames = WARMUP + FRAMES
+    size = W * H
+    r = Renderer(W, H, DEVICE)
+    r.apply_setting(Setting(**POTREE_VIEWS["steady"]))
+    colour, hqs = app.build_methods(r, path)
+    data = PotreeData.create(path, DEVICE, budget)  # the residency cap: no app flag
+    colour.potree = hqs.potree = data
+    must = {colour.name: ("pcr_u64_min",), hqs.name: ("pcr_u64_min", "pcr_hqs_sums")}
+
+    def run(m, n: int, label: str, view: str) -> dict:
+        for k in build.KERNELS.values():
+            k.launches = 0
+        r.loop(m.update, m.render, frames=n)
+        launches = {s_: k.launches for s_, k in build.KERNELS.items()}
+        for s_, n_ in launches.items():
+            ok = n_ >= n if s_ in must[m.name] else n_ == 0
+            check(ok, f"{s_} launched {n_} times in {n} frames ({label}, {view})")
+        img = r.last_image
+        check(tuple(img.shape) == (H, W), f"no {H}x{W} image")
+        shown = int((img != BACKGROUND).sum())
+        check(shown > 0, f"{label} {view}: the image is all background")
+        fd, fp, want = m.frame(r, plain=True)
+        same_planes([img, *r.last_fb], [want, fd, fp],
+                    f"{label} {view}: image or planes != the all-plain frame")
+        return launches
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    colour.update(r)  # starts the loader
+    for m, bins in ((colour, 1), (hqs, 2)):  # HQS calls process() twice a frame
+        while data._queue.qsize() < bins and data._thread.is_alive():
+            time.sleep(0.01)
+        before = data.nodes_loaded
+        launches = run(m, 1, f"potree {m.name} mid-load", "steady")
+        check(before < data.nodes_loaded < len(data.nodes),
+              f"potree {m.name}: no frame in the middle of the load")
+        print(f"[main] potree {m.name} mid-load frame with {data.nodes_loaded} of "
+              f"{len(data.nodes)} nodes, {data.num_points_loaded:,} points resident: image "
+              f"and last_fb bit-exact vs the all-plain frame; launches "
+              f"{ {s_: launches[s_] for s_ in must[m.name]} }")
+    app.wait_loaded(colour, r)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resident = nbytes(*data.dev.values(), *data.node_dev.values(), data.node_ids)
+    print(f"[scene] potree: {path} {data.total_points:,} points in {len(data.nodes)} nodes "
+          f"resident of {data.num_points:,} in the scene"
+          f"{f' (cap {budget:,})' if budget else ''}, {len(data.bins)} bins; loaded in "
+          f"{load_s:.1f} s with two frames; {resident:,} B resident on the card, peak "
+          f"{torch.cuda.max_memory_allocated():,} B allocated [{card}]")
+
+    nchunks = -(-data.dev["xyz4"].shape[0] // CHUNK_PTS)
+    shapes = {}
+    for name, view in POTREE_VIEWS.items():
+        r.apply_setting(Setting(**view))
+        r.controls_update()
+        for density in (0.0, POTREE_DENSITY):
+            Debug.node_budget = density
+            tables = colour.frame_tables(r, cull=True)
+            if density:
+                nodes, takes = tables["gather"]
+                points = int(takes.sum())
+                # the cover of the reference's compact buffer may shrink the takes
+                what = f"budgeted points gathered (the budget asked {tables['asked']:,})"
+            else:
+                live = len(tables["chunks"])
+                vis = (tables["code"][:data.nodes_loaded] & 1) == 1
+                points, what = int(data.node_count[vis].sum()), "points of visible nodes"
+                if name == "corner":
+                    check(live < nchunks, f"potree corner: {live} of {nchunks} chunks "
+                                          f"live, none culled")
+            for m in (colour, hqs):
+                label = f"potree {m.name}{' budget' if density else ''}"
+                launches = run(m, frames, label, name)
+                if density:  # the compact gather against the masked chunks
+                    fd, fp, want = m.frame(r, compact=False)
+                    same_planes([r.last_image, *r.last_fb], [want, fd, fp],
+                                f"{label} {name}: the compact frame != the masked frame")
+                results[(label, name)] = dict(
+                    frame_ms=statistics.median(r.frame_ms[-FRAMES:]), visible=points,
+                    shown=int((r.last_image != BACKGROUND).sum()), launches=launches,
+                    frames=FRAMES, what=what,
+                    scene=f"{data.total_points:,} of {data.num_points:,} points resident")
+                print(f"[main] {label} {name}: image and last_fb bit-exact vs the "
+                      f"all-plain frame{' and the masked frame' if density else ''}; "
+                      f"{points:,} {what}"
+                      f"{'' if density else f', {live} of {nchunks} chunks live'}; "
+                      f"launches { {s_: launches[s_] for s_ in must[m.name]} } in {frames} "
+                      f"frames, no other kernel [{card}]")
+            if (name, density) == ("steady", 0.0):
+                parts = list(node_parts(**colour.frame_args(r, tables)))
+                planes = u64_min_planes(parts, size)
+                errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
+                    planes, u64_min_planes_plain(parts, size),
+                    "B3 on the potree steady frame's parts"))
+                rgba = data.dev["rgba"]
+                cparts = [(pid, dep, rgba[idx]) for pid, dep, idx in parts]
+                fb = planes[0].contiguous()
+                errs["pcr_hqs_sums"] = max(errs["pcr_hqs_sums"], same_planes(
+                    hqs_sums(cparts, fb, size), hqs_sums_plain(cparts, fb, size),
+                    "B4 on the potree steady frame's parts"))
+                shapes = dict(parts=parts, colour=cparts, fb=fb)
+    Debug.node_budget = 0.0
+    print(f"[scene] potree: peak {torch.cuda.max_memory_allocated():,} B allocated over the "
+          f"load and every frame [{card}]")
+    data.unload()
+    Runtime.clear()
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def fetch_frame(port: int, view: dict) -> tuple[bytes, str]:
     """GET the viewer's /frame for `view` until it is not stale."""
     import urllib.request
@@ -678,6 +869,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=256,
                     help="scene size in 65,536-point batches (256 = 16.8M)")
+    ap.add_argument("--potree-points", type=float, default=5e7,
+                    help="points of the synthetic Potree scene (5e7: the fully resident "
+                         "scene of the reference's r3_potree_frame; 1e9 its 1B-point run)")
+    ap.add_argument("--potree-budget", type=float, default=None,
+                    help="the Potree scene's residency cap in points (3e8 in the "
+                         "reference's 1B-point run; default: all resident)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -722,8 +919,8 @@ def main(argv=None) -> int:
         N_U, N_V, Parametric, render_parametric, surface_points)
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
     from pcrhpg24_tpu_torch.render.raster import (
-        BACKGROUND, U64_MIN, edl_shade, image_to_rgb8, project_points, resolve, sort_by_pid,
-        swizzle_dims, u64_min_planes, u64_min_planes_plain, unswizzle_plane)
+        BACKGROUND, U64_MIN, edl_shade, image_to_rgb8, key_plane, project_points, resolve,
+        sort_by_pid, swizzle_dims, u64_min_planes, u64_min_planes_plain, unswizzle_plane)
     from pcrhpg24_tpu_torch.render import raster
     from pcrhpg24_tpu_torch.render.overlay import draw_bounding_boxes
     from pcrhpg24_tpu_torch.utils.devtime import device_ms
@@ -1134,6 +1331,38 @@ def main(argv=None) -> int:
           f"u64_min_planes_plain")
     del cp, cd, cy, cparts, got, want, one, falling, part
 
+    # B3 and B4 on a crafted Potree part (`crafted.potree_part`): many nodes,
+    # each a run of nearby pixels in random order, culled nodes and budget
+    # tails dropped; in two groups into a running plane and accumulator (as
+    # `loop_nodes` resolves a frame's live chunks), against the plain
+    # versions over the whole part in one call
+    psize = W * H
+    cp, cd, cy, cc, cf = (from_u32(x).to(DEVICE) for x in
+                          crafted.potree_part(2000, W, H, seed=11))
+    half = cp.numel() // 2 + 37
+    want = u64_min_planes_plain([(cp, cd, cy)], psize)
+    check(torch.equal(want[0], cf), "crafted Potree part: its depth plane")
+    plane = key_plane(psize, DEVICE)
+    for sl_ in (slice(0, half), slice(half, None)):
+        got = u64_min_planes([(cp[sl_], cd[sl_], cy[sl_])], psize, plane)
+    errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
+        got, want, "B3 != plain on the crafted Potree part, two groups"))
+    same_planes(u64_min_planes([(cp, cd, cy)], psize), want,
+                "B3 != plain on the crafted Potree part")
+    want = hqs_sums_plain([(cp, cd, cc)], cf, psize)
+    acc = torch.zeros((psize, 4), dtype=torch.int32, device=DEVICE)
+    for sl_ in (slice(0, half), slice(half, None)):
+        got = hqs_sums([(cp[sl_], cd[sl_], cc[sl_])], cf, psize, acc)
+    errs["pcr_hqs_sums"] = max(errs["pcr_hqs_sums"], same_planes(
+        got, want, "B4 != plain on the crafted Potree part, two groups"))
+    same_planes(hqs_sums([(cp, cd, cc)], cf, psize), want,
+                "B4 != plain on the crafted Potree part")
+    print(f"[gate] crafted Potree part (2,000 nodes, {cp.numel():,} entries, "
+          f"{int((widen(cp) < psize).sum()):,} live, {int(widen(want[3]).sum()):,} "
+          f"accepted): B3 and B4 bit-exact vs their plain versions, in one call and in "
+          f"two groups into a running plane and accumulator")
+    del cp, cd, cy, cc, cf, got, want, plane, acc
+
     # B6 on the parametric frame's pid-sorted stream, for each camera
     cut = 1 << 18  # entries of the cut-down input held to the CPU plain version
     param = Parametric(Renderer(W, H, DEVICE))
@@ -1368,6 +1597,14 @@ def main(argv=None) -> int:
     # the `.las` methods, and `basic` on the multi-file scene
     las_shapes = las_phase(base + ".las", multi_paths(base), results, errs, card)
 
+    # the Potree scene's two methods, one load for every view
+    potree_path, potree_s = potree_scene(int(args.potree_points))
+    print(f"[scene] potree: {potree_path} written in {potree_s:.1f} s (0 = cached), "
+          f"{sum(os.path.getsize(os.path.join(potree_path, f)) for f in os.listdir(potree_path)):,}"
+          f" B on disk")
+    potree_budget = None if args.potree_budget is None else int(args.potree_budget)
+    potree_shapes = potree_phase(potree_path, potree_budget, results, errs, card)
+
     # ---- 5b. the flagship frame's other outputs, through the app ----
     output_phase({2: scenes[2], 1: scenes[1], "huffman": huf_path, "las": base + ".las"},
                  results)
@@ -1455,6 +1692,12 @@ def main(argv=None) -> int:
     idx4l, vals4l = hqs_rows(*(torch.cat([p[k].reshape(-1) for p in lcolour])
                                for k in range(3)), lfb, psize)
     plane4l = torch.zeros((psize + 1, 4), dtype=torch.int32, device=DEVICE)
+    pparts, pcolour, pfb = (potree_shapes[k] for k in ("parts", "colour", "fb"))
+    idx3p, keys3p, plane3p = amin_rows(*(torch.cat([p[k].reshape(-1) for p in pparts])
+                                         for k in range(3)), psize)
+    idx4p, vals4p = hqs_rows(*(torch.cat([p[k].reshape(-1) for p in pcolour])
+                               for k in range(3)), pfb, psize)
+    plane4p = torch.zeros((psize + 1, 4), dtype=torch.int32, device=DEVICE)
     timed = {
         "pcr_decode_fixed": (lambda: decode_fixed_batches(*dargs, points=dpts),
                              lambda: decode_fixed_plain(*dargs, points=dpts), None),
@@ -1483,6 +1726,13 @@ def main(argv=None) -> int:
         "pcr_hqs_sums:las": (lambda: hqs_sums(lcolour, lfb, psize),
                              lambda: hqs_sums_plain(lcolour, lfb, psize),
                              lambda: plane4l.index_add_(0, idx4l, vals4l)),
+        "pcr_u64_min:potree": (lambda: u64_min_planes(pparts, psize),
+                               lambda: u64_min_planes_plain(pparts, psize),
+                               lambda: plane3p.scatter_reduce_(0, idx3p, keys3p,
+                                                               reduce="amin")),
+        "pcr_hqs_sums:potree": (lambda: hqs_sums(pcolour, pfb, psize),
+                                lambda: hqs_sums_plain(pcolour, pfb, psize),
+                                lambda: plane4p.index_add_(0, idx4p, vals4p)),
         "pcr_decode_native": (lambda: decode_native_batches(*native_in, points=64),
                               lambda: decode_native_plain(*native_in, points=64), None),
         "pcr_merge_nk1": (lambda: dense_from_sorted_nk1(*sp, psize),
@@ -1517,6 +1767,9 @@ def main(argv=None) -> int:
         "pcr_hqs_sums": nbytes(*hparts[0], hfb) + 16 * size,
         "pcr_u64_min:las": sum(nbytes(*p) for p in lparts) + 8 * psize,
         "pcr_hqs_sums:las": sum(nbytes(*p) for p in lcolour) + nbytes(lfb) + 16 * psize,
+        "pcr_u64_min:potree": sum(nbytes(*p) for p in pparts) + 8 * psize,
+        "pcr_hqs_sums:potree": (sum(nbytes(*p) for p in pcolour) + nbytes(pfb)
+                                + 16 * psize),
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
                               + CHUNK * 64 * 3 * 1024 * 4),
         "pcr_merge_nk1": nbytes(*sp) + 8 * psize,
@@ -1541,6 +1794,11 @@ def main(argv=None) -> int:
                            f"{sum(p[0].numel() for p in lparts):,} entries into {psize:,} pixels",
         "pcr_hqs_sums:las": f"the loop_las_hqs orbit frame's {len(lcolour)} part(s), "
                             f"{sum(p[0].numel() for p in lcolour):,} entries",
+        "pcr_u64_min:potree": f"the loop_nodes steady frame's {len(pparts)} part(s), "
+                              f"{sum(p[0].numel() for p in pparts):,} entries into "
+                              f"{psize:,} pixels",
+        "pcr_hqs_sums:potree": f"the loop_nodes_hqs steady frame's {len(pcolour)} part(s), "
+                               f"{sum(p[0].numel() for p in pcolour):,} entries",
         "pcr_decode_huffman": f"the .huffman scene's first {CHUNK} batches at points "
                               f"{dpts}",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
@@ -1563,6 +1821,8 @@ def main(argv=None) -> int:
         "pcr_u64_min:hqs": b3_alone(fparts["hqs"]),
         "pcr_u64_min:las": lambda: [U64_MIN.launch(*g, plane_alone.data_ptr(), psize)
                                     for g in build.part_groups(lparts)],
+        "pcr_u64_min:potree": lambda: [U64_MIN.launch(*g, plane_alone.data_ptr(), psize)
+                                       for g in build.part_groups(pparts)],
         "pcr_merge_nk1": lambda: MERGE_NK1.launch(
             sp[0].data_ptr(), sp[1].data_ptr(), sp[2].data_ptr(), plane_alone.data_ptr(),
             sp[0].numel(), psize),
@@ -1668,7 +1928,7 @@ def main(argv=None) -> int:
         print(f"[time] {label} {name}: device frame {res['frame_ms']:.3f} ms median of "
               f"{res['frames']} (CUDA events), {res['visible']:,} {what}, "
               f"{res['visible'] / res['frame_ms'] / 1e6:.3f} Gpoints/s "
-              f"@{W}x{H}, {args.batches} batches [{card}]")
+              f"@{W}x{H}, {res.get('scene', f'{args.batches} batches')} [{card}]")
     # what the depth plane, EDL and the boxes add to a frame: the
     # event-timed frames of the output phase against the path's colour
     # frame, and the device time of each added step alone at the orbit

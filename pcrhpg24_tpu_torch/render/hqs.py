@@ -35,10 +35,12 @@ HQS_SORTED = Kernel("pcr_hqs_sorted", [P, P, P, P, P, L, I])
 TOLERANCE = 1.01  # huffman_tpu_hqs.py:153, multiplied in f32
 
 
-def hqs_sums_plain(parts, fb_depth, size: int):
+def hqs_sums_plain(parts, fb_depth, size: int, acc=None):
     """(r, g, b, n) planes, each (size,) int32 u32 bits, from every
     (pid, dep, pay) part (int32 u32 bits, any shape) and the dense
-    (size,) min-depth plane `fb_depth` in the same swizzled pid space."""
+    (size,) min-depth plane `fb_depth` in the same swizzled pid space.
+    With `acc`, a running (size, 4) int32 accumulator, the sums are
+    added into it (mod 2**32) and the planes are its columns."""
     device = fb_depth.device
     tol = torch.tensor(TOLERANCE, dtype=torch.float32, device=device)
     old_all = fb_depth.contiguous().view(torch.float32)
@@ -54,6 +56,9 @@ def hqs_sums_plain(parts, fb_depth, size: int):
         for k, v in enumerate((p & 255, (p >> 8) & 255, (p >> 16) & 255,
                                torch.ones_like(p))):
             planes[k].index_add_(0, idx, v)
+    if acc is not None:
+        acc.copy_((widen(acc) + planes[:, :size].t()).to(torch.int32))
+        return tuple(acc[:, k] for k in range(4))
     out = planes[:, :size].to(torch.int32)  # wraps mod 2**32, as u32 sums do
     return tuple(out[k] for k in range(4))
 
@@ -83,19 +88,23 @@ def _launch_sums(kernel: Kernel, parts, fb_depth, size: int):
     return tuple(planes[k] for k in range(4))
 
 
-def hqs_sums(parts, fb_depth, size: int):
+def hqs_sums(parts, fb_depth, size: int, acc=None):
     """B4: the planes of `hqs_sums_plain`, one kernel launch for up to 64
     parts.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     Each part's tensors are int32 (u32 bits) of one shape; `fb_depth` is
     a (size,) int32 plane on the same card.  On the card the planes are
-    strided views (stride 4) of one (size, 4) accumulator.
+    strided views (stride 4) of one (size, 4) accumulator: `acc`, a
+    running one that the parts are added into (a frame's parts in
+    groups), or a new one.
     """
     if not fb_depth.is_cuda:
-        return hqs_sums_plain(parts, fb_depth, size)
+        return hqs_sums_plain(parts, fb_depth, size, acc)
     check_cuda("fb_depth", fb_depth, torch.int32, (size,))
-    acc = torch.zeros((size, 4), dtype=torch.int32, device=fb_depth.device)
+    if acc is None:
+        acc = torch.zeros((size, 4), dtype=torch.int32, device=fb_depth.device)
+    check_cuda("acc", acc, torch.int32, (size, 4))
     for group in part_groups(parts):
         HQS_SUMS.launch(*group, fb_depth.data_ptr(), acc.data_ptr(), size)
     return tuple(acc[:, k] for k in range(4))

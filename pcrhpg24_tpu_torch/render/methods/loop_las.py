@@ -107,7 +107,7 @@ def mask_pid(pid, keep, size: int):
 
 
 def project_101010(xyz4, xyz8, xyz12, level, bmin, bmax, transform, base_index: int,
-                   width: int, height: int, mask):
+                   width: int, height: int, mask, index=None):
     """(pid, depth, index) of packed points (`loop_las.py:225-279`).
 
     xyz4/8/12: int32 planes of one shape, here (nb, 65536) for nb
@@ -116,7 +116,9 @@ def project_101010(xyz4, xyz8, xyz12, level, bmin, bmax, transform, base_index: 
     0 joins all three planes (30 bits), level 1 the first two (20),
     higher levels the first only and divide its top 10 bits by 1024;
     then `Xs * (box / denom) + bmin`, and `raster.project_points`' f32
-    projection.  All int32: a plane field is 10 bits, X/Y/Z 30."""
+    projection.  All int32: a plane field is 10 bits, X/Y/Z 30.  The
+    payload is each point's global index: `base_index` onwards, or the
+    int32 `index` tensor of the points' own indices (a gathered frame)."""
 
     def unpack(plane, shift):
         return tuple(((plane >> s) & MASK) << shift for s in (0, 10, 20))
@@ -135,7 +137,32 @@ def project_101010(xyz4, xyz8, xyz12, level, bmin, bmax, transform, base_index: 
         pos.append(s * ((mx - mn) / denom) + mn)
     pid, dep = project_points(*pos, transform, width, height)
     pid = mask_pid(pid, mask, width * height)
-    return pid, dep, point_index(base_index, pid.shape, pid.device)
+    if index is None:
+        index = point_index(base_index, pid.shape, pid.device)
+    return pid, dep, index
+
+
+def project_101010_nodes(xyz4, xyz8, xyz12, nid, nodes, transform, base_index: int,
+                         width: int, height: int, index=None):
+    """(pid, depth, index) of a Potree chunk's packed points, each against
+    its node (`raster_chunk_101010_nodes`, `loop_las.py:185-222`).
+
+    xyz4/8/12 and nid (each point's node) are (n,) int32; `nodes` holds
+    the per-node device tables: `code` (take << 4 | level << 1 | vis,
+    int32), `bmin`, `bmax` ((N, 3) f32, relative to las_min) and `start`
+    (the node's first point, int32).  A point renders only among its
+    node's first `take` (the prefix budget, `loop_las.py:208-212`); its
+    index is `base_index` onwards, or `index` (the compact frame's
+    gathered points)."""
+    if index is None:
+        index = point_index(base_index, nid.shape, nid.device)
+    code = nodes["code"][nid]
+    vis = ((code & 1) == 1) & ((index - nodes["start"][nid]) < (code >> 4))
+    bmin, bmax = nodes["bmin"][nid], nodes["bmax"][nid]
+    return project_101010(xyz4, xyz8, xyz12, (code >> 1) & 7,
+                          tuple(bmin[:, k] for k in range(3)),
+                          tuple(bmax[:, k] for k in range(3)), transform, base_index,
+                          width, height, vis, index)
 
 
 def colour_parts(parts, rgba):

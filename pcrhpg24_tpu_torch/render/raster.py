@@ -28,8 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.build import I, P, Kernel, part_groups
-from ..u32 import INT32_MIN, INT64_MAX, biased_key, key_views, split_key, unbias_key, widen
+from ..kernels.build import I, P, Kernel, check_cuda, part_groups
+from ..u32 import (INT32_MIN, INT64_MAX, INT64_MIN, biased_key, key_views, split_key,
+                   unbias_key, widen)
 
 EMPTY = -1  # reference raster.EMPTY (0xFFFFFFFF) as int32 bits
 BACKGROUND = 0x00443322  # resolve.cu:166
@@ -58,36 +59,54 @@ def unswizzle_plane(fb, width: int, height: int):
     return img.reshape(ht * TILE_PX, wt * TILE_PX)[:height, :width].reshape(-1)
 
 
-def u64_min_planes_plain(parts, size: int):
+def key_plane(size: int, device):
+    """A running u64 key plane for `u64_min_planes(..., plane=)`: (size,)
+    int64 holding the u64 `(dep << 32) | pay` bits, all ones (EMPTY)."""
+    return torch.full((size,), -1, dtype=torch.int64, device=device)
+
+
+def u64_min_planes_plain(parts, size: int, plane=None):
     """Exact per-pixel u64 (dep<<32|pay) min over every (pid, dep, pay)
     stream in `parts` -> (fb_depth, fb_payload), each (size,) int32 u32
     bits, EMPTY where no entry landed; pids outside [0, size) drop.
 
     Equal to `raster.scatter_u64_min` (tie-break by payload included):
-    the biased key orders like the u64 key and EMPTY is INT64_MAX.
+    the biased key orders like the u64 key and EMPTY is INT64_MAX.  With
+    `plane` (`key_plane`), the parts are min-combined into it in place
+    and the planes are views of it, as `u64_min_planes` returns them.
     """
-    device = parts[0][0].device
-    plane = torch.full((size + 1,), INT64_MAX, dtype=torch.int64, device=device)
+    device = parts[0][0].device if parts else plane.device
+    biased = torch.full((size + 1,), INT64_MAX, dtype=torch.int64, device=device)
+    if plane is not None:
+        biased[:size] = plane ^ INT64_MIN  # all ones -> INT64_MAX
     for pid, dep, pay in parts:
         pid = pid.reshape(-1).to(torch.int64)
         live = (pid >= 0) & (pid < size)
         idx = torch.where(live, pid, torch.full_like(pid, size))
-        plane.scatter_reduce_(0, idx, biased_key(dep.reshape(-1), pay.reshape(-1)),
-                              reduce="amin", include_self=True)
-    return split_key(unbias_key(plane[:size]))
+        biased.scatter_reduce_(0, idx, biased_key(dep.reshape(-1), pay.reshape(-1)),
+                               reduce="amin", include_self=True)
+    if plane is None:
+        return split_key(unbias_key(biased[:size]))
+    plane.copy_(unbias_key(biased[:size]))
+    return key_views(plane)
 
 
-def u64_min_planes(parts, size: int):
+def u64_min_planes(parts, size: int, plane=None):
     """B3: the planes of `u64_min_planes_plain`, one kernel launch for up
     to 64 parts into one u64 plane.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     Each part's tensors are int32 (u32 bits) of one shape.  On the card
-    the planes are strided views (stride 2) of the u64 plane.
+    the planes are strided views (stride 2) of the u64 plane.  With
+    `plane` (`key_plane`, on the parts' device), the parts are resolved
+    into that running plane, so that a frame's parts can go in groups.
     """
-    if not parts[0][0].is_cuda:
-        return u64_min_planes_plain(parts, size)
-    plane = torch.full((size,), -1, dtype=torch.int64, device=parts[0][0].device)
+    on_card = plane.is_cuda if plane is not None else parts[0][0].is_cuda
+    if not on_card:
+        return u64_min_planes_plain(parts, size, plane)
+    if plane is None:
+        plane = key_plane(size, parts[0][0].device)
+    check_cuda("plane", plane, torch.int64, (size,))
     for group in part_groups(parts):
         U64_MIN.launch(*group, plane.data_ptr(), size)
     return key_views(plane)

@@ -70,6 +70,12 @@ tiles of one triple, tiles already sorted and sorted in reverse, k0 and
 k1 tied so that k2 decides, keys drawn from INT32_MIN, INT32_MAX and the
 sign boundary, a few whole triples repeated, and HQS-like tiles of which
 half the entries carry the 1080p frame's sentinel pid.
+
+`potree_part` builds what a Potree chunk hands B3 and B4: many nodes one
+after the other, each a run of nearby pixels in random order inside the
+node (its points fall around one spot of the screen, in the order they
+were written), whole nodes culled and the tail of budgeted nodes
+dropped, in linear pixel ids.
 """
 
 from __future__ import annotations
@@ -433,3 +439,40 @@ def huffman_batches(kind: str, batches: int = 2, seed: int = 0) -> dict:
             idx = np.flatnonzero(tl == tl[tl > 0].min())[::5]
             tl[idx] = np.resize(wild, idx.size)
     return out
+
+
+def potree_part(nodes: int, width: int, height: int, seed: int = 0):
+    """-> (pid, dep, pay, colour, fb_depth) u32 arrays: one part of
+    `nodes` nodes of 256-8192 points each, in linear pixel ids of a
+    width x height frame.  A node's points land in a square of 4-64
+    pixels a side around its own spot, in random order; a tenth of the
+    nodes are culled (every pid `width * height`) and a third keep only a
+    prefix (the rest dropped, as a node budget's mask leaves them);
+    depths lie within 3 % of the node's own, so that some entries fall
+    outside the HQS tolerance; the payload is the global index, the
+    colour random.  fb_depth is the depth half of the part's u64-min
+    plane (B4's prepass), EMPTY where nothing lands."""
+    rng = np.random.default_rng(seed)
+    size = width * height
+    counts = rng.integers(256, 8193, nodes)
+    n = int(counts.sum())
+    node = np.repeat(np.arange(nodes), counts)
+    side = rng.integers(4, 65, nodes)[node]
+    cx, cy = rng.integers(0, width, nodes)[node], rng.integers(0, height, nodes)[node]
+    px = np.clip(cx + rng.integers(0, 1 << 16, n) % side - side // 2, 0, width - 1)
+    py = np.clip(cy + rng.integers(0, 1 << 16, n) % side - side // 2, 0, height - 1)
+    pid = (px + py * width).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    local = np.arange(n) - starts[node]
+    take = np.where(rng.random(nodes) < 1 / 3, rng.integers(1, counts + 1), counts)
+    culled = rng.random(nodes) < 0.1
+    pid[culled[node] | (local >= take[node])] = size
+    near = (1 + rng.random(nodes) * 500).astype(np.float32)
+    w = near[node] * (1 + rng.random(n).astype(np.float32) * np.float32(0.03))
+    dep = w.view(np.uint32)
+    pay = np.arange(n, dtype=np.uint32)
+    colour = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    fbd = np.full(size, 0xFFFFFFFF, np.uint32)
+    live = pid < size
+    np.minimum.at(fbd, pid[live], dep[live])
+    return pid.astype(np.uint32), dep, pay, colour, fbd

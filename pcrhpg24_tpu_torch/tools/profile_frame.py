@@ -8,8 +8,9 @@ device intervals), the device idle share (1 - busy / wall), each device
 kernel's time and launch count, the host's self time in each torch op
 and CUDA runtime call that takes the most of it (what the host spends
 its share of the frame on), and the peak device memory.  Scenes: a
-`.huffman`, `.tpc` or `.las` file, a multi-file scene or `parametric`
-through the app's methods, or a `.wg` file
+`.huffman`, `.tpc` or `.las` file, a multi-file scene, a Potree
+directory (`--node-budget D`: `Debug.node_budget`, the budgeted compact
+frame) or `parametric` through the app's methods, or a `.wg` file
 through `loop_nodes_compressed` (which the app does not register, as
 the reference's does not).  Run on a host with a card:
 
@@ -17,6 +18,9 @@ the reference's does not).  Run on a host with a card:
         [--method huffman_tpu|huffman_tpu_hqs|huffman_mem_iter|huffman_hqs|loop_las|...] \
         [--view orbit] [--frames 5]
     python -m pcrhpg24_tpu_torch.tools.profile_frame --scene parametric --view near
+    python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/potree_dir \
+        --method loop_nodes|loop_nodes_hqs --view steady [--node-budget 2.0] \
+        [--budget-points 3e8]
     python -m pcrhpg24_tpu_torch.tools.profile_frame --scene out/s.tpc \
         --outputs colorize_overdraw edl   # the frame's other outputs: any of OUTPUTS
 """
@@ -43,6 +47,12 @@ VIEWS = {
     "near": Setting(yaw=0.4, pitch=-0.3, radius=14.0),
     "mid": Setting(yaw=-1.2, pitch=-0.7, radius=22.0),
     "far": Setting(yaw=2.0, pitch=0.25, radius=35.0),
+    # the synthetic Potree scene of `tools/synth_potree.py` (4096 m): the
+    # steady camera of the reference's 1B-point run, an overview, and a
+    # close-up of the (700, 700) corner on the terrain
+    "steady": Setting(yaw=0.45, pitch=-0.75, radius=6500.0, target=(2048.0, 2048.0, 500.0)),
+    "overview": Setting(yaw=-0.6, pitch=-1.2, radius=12000.0, target=(2048.0, 2048.0, 900.0)),
+    "corner": Setting(yaw=0.8, pitch=-0.5, radius=250.0, target=(700.0, 700.0, 1030.0)),
 }
 
 
@@ -63,11 +73,14 @@ def busy_us(intervals) -> float:
 
 
 def profile(scene: str, method: str | None, view: str, frames: int, width: int,
-            height: int, lod: float, outputs=()) -> dict:
+            height: int, lod: float, outputs=(), node_budget: float = 0.0,
+            budget_points: int | None = None) -> dict:
     from ..app import build_methods
+    from ..engine.potree_resource import PotreeData
     from ..render.methods.loop_nodes_compressed import ComputeLoopNodesCompressed, WgData
 
     Debug.lod = lod
+    Debug.node_budget = node_budget
     for flag in OUTPUTS[:-1]:
         setattr(Debug, flag, flag in outputs)
     r = Renderer(width, height, "cuda")
@@ -80,7 +93,9 @@ def profile(scene: str, method: str | None, view: str, frames: int, width: int,
         if method:
             Runtime.set_selected(method)
         m = Runtime.selected
-    resource = getattr(m, "las", None) or getattr(m, "wg", None)
+        if budget_points is not None and hasattr(m, "potree"):
+            m.potree = PotreeData.create(scene, "cuda", budget_points)
+    resource = getattr(m, "las", None) or getattr(m, "wg", None) or getattr(m, "potree", None)
     m.update(r)
     if resource is not None:
         resource.wait_loaded(r)
@@ -132,26 +147,37 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--outputs", nargs="*", default=[], choices=OUTPUTS,
                     help="the colour frame's other outputs to render")
+    ap.add_argument("--node-budget", type=float, default=0.0,
+                    help="Potree: Debug.node_budget, the budget's density (0: none)")
+    ap.add_argument("--budget-points", type=float, default=None,
+                    help="Potree: the residency cap, in points")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no card", file=sys.stderr)
         return 1
+    cap = None if args.budget_points is None else int(args.budget_points)
     res = profile(args.scene, args.method, args.view, args.frames, args.width,
-                  args.height, args.lod, args.outputs)
+                  args.height, args.lod, args.outputs, args.node_budget, cap)
     shown = f" +{'+'.join(args.outputs)}" if args.outputs else ""
+    shown += f" node_budget {args.node_budget}" if args.node_budget else ""
+    # the `pcr_*` ranges around the port's launches show on the device too
+    launched = sum(n for k, (_ms, n) in res["kernels"].items() if not k.startswith("pcr_"))
     print(f"[profile] {res['method']}{shown} {args.view} {args.scene}: wall "
           f"{res['wall_ms']:.3f} ms/frame (without the profiler "
           f"{res['plain_wall_ms']:.3f}), device busy {res['busy_ms']:.3f} "
-          f"ms/frame, idle share {res['idle_share']:.3f}, peak "
+          f"ms/frame, idle share {res['idle_share']:.3f}, {launched:g} device kernels "
+          f"and copies a frame, peak "
           f"{res['peak_bytes']:,} B ({args.frames} frames under the profiler, "
           f"{torch.cuda.get_device_name(0)})")
     top = sorted(res["kernels"].items(), key=lambda kv: -kv[1][0])
     rest = sum(ms for _k, (ms, _n) in top[args.top:])
-    for name, (ms, n) in top[: args.top]:
+    # and the port's own kernels (their profiler ranges: `pcr_*`) wherever they rank
+    top = top[: args.top] + [kv for kv in top[args.top:] if kv[0].startswith("pcr_")]
+    for name, (ms, n) in top:
         share = ms / res["busy_ms"] if res["busy_ms"] else 0.0
         print(f"[profile]   {ms:.3f} ms/frame ({share:.1%} of busy), {n:g} "
               f"launches/frame: {name[:90]}")
-    print(f"[profile]   {rest:.3f} ms/frame in {max(len(top) - args.top, 0)} "
+    print(f"[profile]   {rest:.3f} ms/frame in {max(len(res['kernels']) - args.top, 0)} "
           f"other device kernels and copies")
     host = sorted(res["host"].items(), key=lambda kv: -kv[1][0])
     total = sum(ms for _k, (ms, _n) in host)

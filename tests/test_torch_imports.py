@@ -140,11 +140,23 @@ def test_cpu_tensors_never_launch():
     assert build.KERNELS["pcr_u64_min"].launches == before
 
 
-@pytest.mark.parametrize("scene,item", [("potree_dir", "A10")])
-def test_unported_scene_kinds_name_their_roadmap_item(scene, item):
+@pytest.mark.parametrize("scene,item", [("raw.tpc", "A11c")])
+def test_unported_scene_kinds_name_their_roadmap_item(tmp_path, scene, item):
+    """A `.tpc` with raw colours, written by the reference's preprocessor:
+    the port has no decode of its payload yet."""
+    from pcrhpg24_tpu.formats.las import write_las
+    from pcrhpg24_tpu.preprocess import preprocess_las_tpc
+
+    rng = np.random.default_rng(0)
+    xyz = rng.integers(0, 100_000, (65536, 3)).astype(np.int32)
+    las = str(tmp_path / "s.las")
+    write_las(las, xyz[:, 0], xyz[:, 1], xyz[:, 2],
+              rng.integers(0, 256, (65536, 3)).astype(np.uint8))
+    path = str(tmp_path / scene)
+    preprocess_las_tpc(las, path, verbose=False, color_fmt=scene.split(".")[0])
     r = Renderer(64, 32, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        app.build_methods(r, scene)
+        app.build_methods(r, path)
 
 
 def test_parametric_scene_builds_its_method():

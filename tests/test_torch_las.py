@@ -301,7 +301,15 @@ def _streams_of(monkeypatch, module, fn_name, **kw):
     its resolve, from a fresh jit of it at O0."""
     monkeypatch.setattr(module, "sorted_scatter_u64_min",
                         lambda pid, depth, payload, size, fb_d, fb_p: (pid, (depth, payload)))
-    fn = jax.jit(getattr(module, fn_name).__wrapped__, static_argnames=("width", "height"))
+    inner = getattr(module, fn_name).__wrapped__
+
+    def chunk(**a):
+        return inner(**a)
+
+    # jax caches a trace by its Python function: a jit of `inner` itself
+    # would share the module's jitted function's traces, and leave this
+    # patched trace behind for later callers of it at these shapes
+    fn = jax.jit(chunk, static_argnames=("width", "height"))
     pid, (dep, pay) = _o0(fn, **kw)
     return [np.asarray(x).astype(np.uint32) for x in (pid, dep, pay)]
 
