@@ -13,14 +13,17 @@ Phases, each of which exits non-zero on failure:
     cached under out/) written by the port's own preprocessor three
     times, as `.tpc` v2 (fbatch), as `.tpc` v1 (tbatch) and as
     `.huffman` (the reference's own format), and by the port's Potree
-    builder and `.wg` converter as `.wg`; all loaded onto the card;
+    builder and `.wg` converter as `.wg`; all loaded onto the card; and
+    as `.tpc` v2 with BC7 and with raw colours (each one's write and load
+    time and resident bytes);
  4. kernel gates, each kernel bit-exact against its plain torch version
     on the card: B1 (and the NumPy protocol mirror) and B5 (and its
     NumPy mirror) at points 64 and 32; B2 and B3 for bench.py's three
     views in colour and HQS modes, and B2 in batch-payload mode (the
     batch index, the LOD count) with and without collapse; B3 and B4 on
     the orbit view's uncollapsed streams of every live chunk, and B3 on
-    its colour streams; B6 on the parametric frame's pid-sorted
+    its colour streams; B2 in BC7 and raw mode (the BC7 and raw scenes'
+    colours) at the same chunks, colour and HQS; B6 on the parametric frame's pid-sorted
     stream for each of its views and on the colour orbit chunk's stream
     sorted by pid, where it must also equal B3's planes; B8 on that
     stream sorted by (pid, depth, payload), equal to B3's planes, with
@@ -43,7 +46,10 @@ Phases, each of which exits non-zero on failure:
     build that takes the count at run time), steps 6 and 3, colour (with
     and without the chain-head ladder) and HQS modes, at points 16, 40 and
     64 each also in batch-payload mode with a ragged per-batch payload
-    (`crafted.batch_payloads`); B4 on 4M-entry streams
+    (`crafted.batch_payloads`), and each in BC7 mode on crafted blocks
+    (`crafted.bc7_rows`: every p-bit pattern, endpoints 0 and 127,
+    indices 0 and 15, every anchor field) and in raw mode on random words
+    with their top byte set; B4 on 4M-entry streams
     (every entry on one pixel, two pixels alternating, sentinel pids,
     EMPTY depths, depths at the tolerance and one ulp above it) split
     into uneven parts, one of them into 70 parts (two launches), and on
@@ -80,7 +86,10 @@ Phases, each of which exits non-zero on failure:
     (B5, B2, B3), and on the `.huffman` scene `huffman_mem_iter` (B12,
     B2, B3), `huffman_hqs` (B12, B3, B4) and `huffman_tpu` on the
     load-time transcode (B1, B2, B3; its image must also equal
-    `huffman_tpu`'s on the `.tpc` v2), at bench.py's three views and a
+    `huffman_tpu`'s on the `.tpc` v2), `huffman_tpu` and
+    `huffman_tpu_hqs` on the BC7 and the raw `.tpc` v2 (B2 in those
+    modes; every pixel of the raw colour frame one of the scene's input
+    colours), at bench.py's three views and a
     close-up of the scene's far corner, which must leave at least one
     64-batch chunk with no batch in view (the live-chunk skip; each
     frame's live chunks are printed), and `--scene parametric` (B6) at three cameras
@@ -122,11 +131,23 @@ Phases, each of which exits non-zero on failure:
     holds kernels run on the card; the viewer (`engine/viewer.py`) on an
     ephemeral localhost port, whose `/frame` is byte-equal to the PNG of
     the app's colour v2 orbit image;
+ 5c. the sharded frames (`pcrhpg24_tpu_torch/parallel/`, ROADMAP A12):
+    `parallel.dryrun.dryrun_multichip` starts two rank processes on the
+    card, joined over `gloo` (whose collectives stage the planes through
+    the host), each rendering its batches with the kernels above; the
+    colour and HQS frames of the BC1 and BC7 `.tpc` v2 scenes (the BC7
+    one with its last batch left out, so that dp = 2 does not divide
+    the batch count: ROADMAP C4) as dp = 2 x sp = 1 and dp = 1 x sp = 2
+    at the orbit view, and the `.huffman` path on the `.huffman`
+    scene's first 5 batches in both layouts; each rank holds its rows to
+    the single-process frame; the all-reduce of a 1920x1080 u64 plane
+    (MIN) and of the four HQS sum planes (SUM) is timed;
  6. times: median device frame (CUDA events), points/s, and each kernel
     beside its plain version, its bound and, where one PyTorch call
     computes the same function, that call, at the frame's shapes (one
     orbit chunk; B6 at the parametric frame's); B2 in colour, HQS and
-    batch-payload mode (three rows); B3 per chunk and over the orbit
+    batch-payload mode, and in BC7 and raw mode on those scenes' orbit
+    chunk (five rows); B3 per chunk and over the orbit
     frame's parts in one call, colour and HQS (three rows); B3 and B4
     over the `loop_las` orbit frame's parts (two more rows), and over the
     `loop_nodes` steady frame's parts (two more); the device
@@ -200,6 +221,14 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                             "pcrhpg24_tpu_torch/csrc/project.cu",
                             "pcrhpg24_tpu/render/pallas_project.py:83 (payload: XLA, "
                             "methods/huffman_tpu.py:146)"),
+    # and in the other colour formats of a `.tpc` v2, whose payloads the
+    # reference computes in XLA beside an XLA projection
+    "pcr_project:bc7": ("B2 fused projection, BC7 mode", "pcrhpg24_tpu_torch/csrc/project.cu",
+                        "pcrhpg24_tpu/render/pallas_project.py:83 (BC7 payload: XLA, "
+                        "render/bc1_layout.py:68)"),
+    "pcr_project:raw": ("B2 fused projection, raw mode", "pcrhpg24_tpu_torch/csrc/project.cu",
+                        "pcrhpg24_tpu/render/pallas_project.py:83 (raw payload: XLA, "
+                        "render/bc1_layout.py:101)"),
     "pcr_u64_min": ("B3 u64-min resolve", "pcrhpg24_tpu_torch/csrc/raster.cu",
                     "pcrhpg24_tpu/render/pallas_merge.py:467"),
     # the same kernel over all of the orbit frame's parts in one call
@@ -253,8 +282,10 @@ PARAM_VIEWS = {
     "mid": dict(yaw=-1.2, pitch=-0.7, radius=22.0, target=(0.0, 0.0, 0.0)),
     "far": dict(yaw=2.0, pitch=0.25, radius=35.0, target=(0.0, 0.0, 0.0)),
 }
-# main paths: (label, method, scene: `.tpc` version or "huffman", kernels
-# it must launch)
+# the `.tpc` v2 colour formats beside BC1
+COLOR_FMTS = ("bc7", "raw")
+# main paths: (label, method, scene: `.tpc` version, "huffman" or a colour
+# format of a `.tpc` v2, kernels it must launch)
 MAIN_PATHS = [
     ("colour v2", "huffman_tpu", 2, ("pcr_decode_fixed", "pcr_project", "pcr_u64_min")),
     ("hqs v2", "huffman_tpu_hqs", 2,
@@ -266,6 +297,10 @@ MAIN_PATHS = [
      ("pcr_decode_huffman", "pcr_u64_min", "pcr_hqs_sums")),
     ("huffman->v2", "huffman_tpu", "huffman",
      ("pcr_decode_fixed", "pcr_project", "pcr_u64_min")),
+    *((f"{kind} v2 {fmt}", method, fmt, ("pcr_decode_fixed", "pcr_project", "pcr_u64_min")
+       + (("pcr_hqs_sums",) if kind == "hqs" else ()))
+      for fmt in COLOR_FMTS for kind, method in (("colour", "huffman_tpu"),
+                                                 ("hqs", "huffman_tpu_hqs"))),
 ]
 # the `.las` methods, the source paper's baselines, in the app's order:
 # (method, kernels it must launch; every other kernel must not launch)
@@ -276,6 +311,8 @@ LAS_METHODS = [(name, ("pcr_u64_min", "pcr_hqs_sums") if "hqs" in name else ("pc
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
          "pcr_project:hqs": ("hqs v2", "orbit"),
          "pcr_project:payload": ("colour v2 chunks", "orbit"),
+         "pcr_project:bc7": ("colour v2 bc7", "orbit"),
+         "pcr_project:raw": ("colour v2 raw", "orbit"),
          "pcr_u64_min": ("colour v2", "orbit"), "pcr_u64_min:frame": ("colour v2", "orbit"),
          "pcr_u64_min:hqs": ("hqs v2", "orbit"), "pcr_hqs_sums": ("hqs v2", "orbit"),
          "pcr_decode_native": ("colour v1", "orbit"),
@@ -300,6 +337,18 @@ POTREE_DENSITY = 2.0  # Debug.node_budget of the reference's 1B-point run
 REF_KEYS = ("encoding", "enc_offsets", "cluster_sizes", "separate", "sep_offsets",
             "separate_sizes", "table_values", "table_cw_len", "start_values")
 WHOLE_BUFFERS = ("encoding", "separate")
+
+
+class Stopwatch:
+    """Prints the seconds each phase of the run took."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, what: str) -> None:
+        now = time.perf_counter()
+        print(f"[phase] {what}: {now - self.t:.1f} s")
+        self.t = now
 
 
 def check(ok: bool, msg: str) -> None:
@@ -923,6 +972,9 @@ def main(argv=None) -> int:
         sort_by_pid, swizzle_dims, u64_min_planes, u64_min_planes_plain, unswizzle_plane)
     from pcrhpg24_tpu_torch.render import raster
     from pcrhpg24_tpu_torch.render.overlay import draw_bounding_boxes
+    from pcrhpg24_tpu_torch.formats.las import read_points
+    from pcrhpg24_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pcrhpg24_tpu_torch.preprocess import preprocess_las_tpc
     from pcrhpg24_tpu_torch.utils.devtime import device_ms
     from pcrhpg24_tpu_torch.utils.png import write_png_bytes
     from pcrhpg24_tpu_torch.render.tile_sort import TILE, tile_sort3, tile_sort3_plain
@@ -942,6 +994,7 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"[env] nvcc: {nvcc}")
 
+    watch = Stopwatch()
     # ---- 2. build ----
     lib, build_s, log = build.build()
     build.load()
@@ -969,6 +1022,28 @@ def main(argv=None) -> int:
               f"{data[v].num_points:,} points, {os.path.getsize(path):,} B on disk; "
               f"loaded in {time.perf_counter() - t0:.1f} s; "
               f"{nbytes(*data[v].dev.values()):,} B resident on the card")
+    # the same terrain as .tpc v2 with BC7 and with raw colours
+    cscenes = {fmt: f"{base}_v2_{fmt}.tpc" for fmt in COLOR_FMTS}
+    cdata = {}
+    for fmt, path in cscenes.items():
+        t0 = time.perf_counter()
+        written = not os.path.exists(path)
+        if written:
+            preprocess_las_tpc(base + ".las", path + ".tmp", sort=True, verbose=False,
+                               color_fmt=fmt)
+            os.replace(path + ".tmp", path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cdata[fmt] = NativeLasData.create(path, DEVICE).wait_loaded()
+        torch.cuda.synchronize()
+        check(cdata[fmt].version == 2 and cdata[fmt].color_fmt == fmt,
+              f"{path} is not a .tpc v2 with {fmt} colours")
+        print(f"[scene] v2 {fmt}: {path} {cdata[fmt].num_batches} batches, "
+              f"{os.path.getsize(path):,} B on disk; "
+              f"{f'written in {write_s:.1f} s' if written else 'cached'}; loaded in "
+              f"{time.perf_counter() - t0:.1f} s; {nbytes(*cdata[fmt].dev.values()):,} B "
+              f"resident on the card, of which {nbytes(cdata[fmt].dev['colors_k']):,} B "
+              f"colours (BC1 v2: {nbytes(data[2].dev['colors_k']):,})")
     t0 = time.perf_counter()
     wg = WgData.create(base + ".wg", DEVICE).wait_loaded()
     torch.cuda.synchronize()
@@ -986,6 +1061,7 @@ def main(argv=None) -> int:
     print(f"[scene] all four generated in {gen_s:.1f} s (0 = cached); allocated "
           f"{torch.cuda.memory_allocated():,} B")
 
+    watch.lap("build and scenes")
     # ---- 4. kernel gates ----
     errs = {k: 0 for k in KERNEL_INFO}
     sl = slice(0, CHUNK)
@@ -1123,6 +1199,7 @@ def main(argv=None) -> int:
     m = HuffmanTpu(r, data[2])
     size = swizzle_dims(W, H)[2]
     shapes = {}
+    fmt_args = {}  # B2's arguments on the BC7 and raw scenes' orbit chunk
     for name, view in VIEWS.items():
         for lod in (1.0, 0.1):  # 0.1: the app's default LOD, buckets < 64
             a = view_args(m, r, view, lod)
@@ -1167,6 +1244,25 @@ def main(argv=None) -> int:
                         e = max_abs_err(g, p)
                         check(e == 0, f"B2 payload mode != plain ({name}, lod {lod}, "
                                       f"collapse={collapse}, err {e})")
+            # B2 in BC7 and raw mode on the same chunk of those scenes
+            for fmt, fd in ((f, cdata[f].dev) for f in COLOR_FMTS):
+                fargs = (decode_fixed_batches(*(fd[k][cs] for k in
+                                                ("widths", "streams", "ptrs", "starts")),
+                                              points=a["points"]),
+                         fd["colors_k"][cs], fd["anchor"][cs], *pargs[3:])
+                for collapse in (True, False):
+                    got = project_batches(*fargs, points=a["points"], collapse=collapse,
+                                          color_fmt=fmt)
+                    plain = project_plain(*fargs, points=a["points"], collapse=collapse,
+                                          color_fmt=fmt)
+                    torch.cuda.synchronize()
+                    for g, p in zip(got, plain):
+                        e = max_abs_err(g, p)
+                        check(e == 0, f"B2 {fmt} mode != plain ({name}, lod {lod}, "
+                                      f"collapse={collapse}, err {e})")
+                        errs[f"pcr_project:{fmt}"] = max(errs[f"pcr_project:{fmt}"], e)
+                if name == "orbit" and lod == 1.0:
+                    fmt_args[fmt] = fargs
             for st, mode in ((hstream, "HQS"), (stream, "colour")):
                 planes = u64_min_planes([st], size)
                 errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
@@ -1174,8 +1270,9 @@ def main(argv=None) -> int:
                     f"B3 != plain ({name}, lod {lod}, {mode} stream)"))
             live = [int((widen(x[0]) < size).sum()) for x in (stream, hstream)]
             print(f"[gate] {name} lod {lod}: chunk {c}, points {a['points']}: B2 "
-                  f"bit-exact vs project_plain (colour + HQS, and in batch-payload mode "
-                  f"with the batch index and the LOD count), B3 bit-exact vs "
+                  f"bit-exact vs project_plain (colour + HQS, in batch-payload mode "
+                  f"with the batch index and the LOD count, and in BC7 and raw mode on "
+                  f"those scenes' chunk), B3 bit-exact vs "
                   f"u64_min_planes_plain on the colour and HQS streams ({live[0]:,} and "
                   f"{live[1]:,} live entries)")
             if name == "orbit" and lod == 1.0:
@@ -1273,6 +1370,22 @@ def main(argv=None) -> int:
                                   f"{pts}, steps {steps}, collapse={collapse}, "
                                   f"chain={chain}, err {e})")
             paid = ", each also in batch-payload mode with a ragged per-batch payload"
+        # BC7 mode on crafted blocks, raw mode on words with their top byte set
+        for fmt in COLOR_FMTS:
+            fargs = [cargs[0], from_u32(crafted.colors_k(len(ca["lodn"]), fmt,
+                                                         seed=pts)).to(DEVICE), *cargs[2:]]
+            for steps, collapse, chain in modes:
+                got = project_batches(*fargs, points=pts, steps=steps, chain_collapse=chain,
+                                      collapse=collapse, color_fmt=fmt)
+                want = project_plain(*fargs, points=pts, steps=steps, chain_collapse=chain,
+                                     collapse=collapse, color_fmt=fmt)
+                torch.cuda.synchronize()
+                for g, p in zip(got, want):
+                    e = max_abs_err(g, p)
+                    check(e == 0, f"B2 {fmt} mode != plain on the crafted chunk (points "
+                                  f"{pts}, steps {steps}, collapse={collapse}, "
+                                  f"chain={chain}, err {e})")
+        paid += "; each in BC7 mode (crafted blocks) and raw mode"
         print(f"[gate] crafted chunk, points {pts}: B2 bit-exact vs project_plain at "
               f"steps 6 and 3, colour with and without the head ladder, and HQS{paid} "
               f"({int(aba.sum()):,} A B A triples along chains, "
@@ -1460,6 +1573,7 @@ def main(argv=None) -> int:
           f"({', '.join(crafted.TILE_KINDS)}) at 4,097, 1 and 0 tiles")
     del got, keys, ck, hpart, hs
 
+    watch.lap("kernel gates")
     # ---- 5. main paths through the app ----
     results = {}
     colour_v2 = {}  # huffman_tpu's images on the .tpc v2, by view
@@ -1468,9 +1582,16 @@ def main(argv=None) -> int:
                     "huffman_tpu_hqs": lambda fa: hqs_frame_native(**fa, plain=True)[2],
                     "huffman_mem_iter": lambda fa: mem_iter_frame(**fa, plain=True)[2],
                     "huffman_hqs": lambda fa: hqs_huffman_frame(**fa, plain=True)[2]}
+    # the raw scene's input colours: every pixel of its colour frame is one
+    las_colours = torch.unique(torch.from_numpy(
+        (read_points(base + ".las", 0, args.batches * 65536).color.astype(np.uint32)
+         & 0xFFFFFF).view(np.int32)).to(DEVICE))
     for label, method_name, v, must in MAIN_PATHS:
-        tag = "huffman" if v == "huffman" else f"v{v}"
-        path = huf_path if v == "huffman" else scenes[v]
+        if label == f"colour v2 {COLOR_FMTS[0]}":
+            watch.lap("main paths of the BC1 .tpc and .huffman scenes")
+        tag = ("huffman" if v == "huffman" else f"v2_{v}" if v in COLOR_FMTS else f"v{v}")
+        path = (huf_path if v == "huffman" else cscenes[v] if v in COLOR_FMTS
+                else scenes[v])
         for name, view in TPC_VIEWS.items():
             argv = app_argv(path, method_name, view, WARMUP + FRAMES)
             if name == "orbit":
@@ -1500,6 +1621,12 @@ def main(argv=None) -> int:
             same = ""
             if label == "colour v2":
                 colour_v2[name] = img.cpu()
+            if label == "colour v2 raw":
+                vals = torch.unique(img[img != BACKGROUND])
+                check(bool(torch.isin(vals, las_colours).all()),
+                      f"{label} {name}: a pixel carries a colour no input point has")
+                same = (f"; each of its {vals.numel():,} colours one of the scene's "
+                        f"{las_colours.numel():,} input colours")
             if label == "huffman->v2":  # tests/test_native_pipeline.py:227-244
                 # `.huffman` stores las_min as f32, `.tpc` as f64: the same
                 # points on the same kernels, with the `.tpc`'s las_min
@@ -1529,7 +1656,8 @@ def main(argv=None) -> int:
             results[(label, name)] = dict(
                 frame_ms=ms, visible=visible, shown=shown, launches=launches,
                 frames=len(rr.frame_ms[WARMUP:]))
-            scene = ".huffman" if v == "huffman" else f".tpc v{v}"
+            scene = (".huffman" if v == "huffman" else f".tpc v2 {v}" if v in COLOR_FMTS
+                     else f".tpc v{v}")
             print(f"[main] {label} ({method_name}, {scene}) {name}: {shown:,} pixels "
                   f"shown, image bit-exact vs the all-plain frame{same}; {live} of "
                   f"{nchunks} chunks live; launches "
@@ -1538,6 +1666,8 @@ def main(argv=None) -> int:
             del rr, method, img, img_plain
             Runtime.clear()
             torch.cuda.empty_cache()
+
+    watch.lap("main paths of the BC7 and raw .tpc scenes")
 
     def b6_frame(label, name, rr, launches, img, img_plain, points):
         """Checks and records the run of a path that must launch B6."""
@@ -1595,7 +1725,9 @@ def main(argv=None) -> int:
     tpc_f32.unload()
 
     # the `.las` methods, and `basic` on the multi-file scene
+    watch.lap("main paths of the parametric and .wg scenes")
     las_shapes = las_phase(base + ".las", multi_paths(base), results, errs, card)
+    watch.lap("the .las methods")
 
     # the Potree scene's two methods, one load for every view
     potree_path, potree_s = potree_scene(int(args.potree_points))
@@ -1604,6 +1736,7 @@ def main(argv=None) -> int:
           f" B on disk")
     potree_budget = None if args.potree_budget is None else int(args.potree_budget)
     potree_shapes = potree_phase(potree_path, potree_budget, results, errs, card)
+    watch.lap("the Potree scene and methods")
 
     # ---- 5b. the flagship frame's other outputs, through the app ----
     output_phase({2: scenes[2], 1: scenes[1], "huffman": huf_path, "las": base + ".las"},
@@ -1656,6 +1789,63 @@ def main(argv=None) -> int:
           f"byte-equal to the PNG of the app's colour v2 orbit image ({len(png):,} B)")
     torch.cuda.empty_cache()
 
+    watch.lap("the flagship frame's other outputs")
+    # ---- 5c. the sharded frames (ROADMAP A12): two ranks on the card ----
+    t_a12 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a12_views = {"orbit": VIEWS["orbit"]}
+    tasks = []
+    # the BC7 scene less its last batch: dp = 2 does not divide its count (C4)
+    for fmt, path, budget in (("bc1", scenes[2], None),
+                              ("bc7", cscenes["bc7"], cdata["bc7"].num_batches - 1)):
+        for dp, sp in ((2, 1), (1, 2)):
+            tasks.append(dict(name=f"{fmt} {dp}x{sp}", kind="tpc", scene=path, budget=budget,
+                              dp=dp, sp=sp, width=W, height=H, lod=1.0, views=a12_views,
+                              modes=["color", "hqs"]))
+    # the .huffman path on the scene's first 5 batches, at the orbit camera
+    hb = min(5, huf.num_batches)
+    hscene = {k: hd[k][:hb].cpu().numpy() for k in REF_KEYS if k not in WHOLE_BUFFERS}
+    for k, at in (("encoding", "enc_offsets"), ("separate", "sep_offsets")):
+        end = int(hd[at][hb]) if hb < huf.num_batches else hd[k].numel()
+        hscene[k] = hd[k][:max(end, 1)].cpu().numpy()
+    r.apply_setting(Setting(**VIEWS["orbit"]))
+    r.controls_update()
+    npz = os.path.join(REPO, "out", "chip_smoke_a12_huffman.npz")
+    np.savez(npz, **hscene, lod_n=np.full(hb, 64, np.int32),
+             transform=(r.camera.proj() @ r.camera.view()).astype(np.float32),
+             scale=np.asarray(huf.scale, np.float32),
+             offset_rel=(np.asarray(huf.offset) - np.asarray(huf.las_min)).astype(np.float32))
+    for dp, sp in ((2, 1), (1, 2)):
+        tasks.append(dict(name=f"huffman {dp}x{sp}", kind="huffman", scene=npz, dp=dp, sp=sp,
+                          width=W, height=H))
+    a12 = dryrun_multichip(2, tasks, "gloo", "cuda:0", workdir=os.path.join(REPO, "out"))
+    check(a12.pop("foreign_modules") == [], "a rank process loaded jax or the JAX package")
+    for t in tasks:
+        run = a12[t["name"]]
+        spans = [(x["start"], x["stop"]) for x in run["ranks"]]
+        if t["name"] in ("bc7 2x1", "huffman 2x1"):  # dp does not divide the batches
+            n_b = run["ranks"][0]["batches"]
+            check(n_b % 2 == 1 and spans == [(0, n_b // 2 + 1), (n_b // 2 + 1, n_b)],
+                  f"A12 {t['name']}: shards {spans} of {n_b} batches")
+        for frame, img in run["images"].items():
+            shown = int((img != BACKGROUND).sum())
+            check(img.shape == (H, W) and shown > 0, f"A12 {t['name']} {frame}: no image")
+            ms = [x["frames"][frame]["ms"] for x in run["ranks"]]
+            print(f"[a12] {t['name']} {frame}: {shown:,} pixels shown, every rank's "
+                  f"{H // t['sp']} rows equal to the single-process frame's; ranks' "
+                  f"batches {spans}; sharded frame {', '.join(f'{x:.3f}' for x in ms)} ms "
+                  f"(host clock, median of 5, each rank) [{card}]")
+        if t["kind"] == "tpc":
+            c = [x["collective_ms"] for x in run["ranks"]]
+            mins = ", ".join(f"{x['min_u64']:.3f}" for x in c)
+            sums = ", ".join(f"{x['sum_4_planes']:.3f}" for x in c)
+            print(f"[a12] {t['name']}: all_reduce over gloo of a {W}x{H} plane "
+                  f"({c[0]['plane_entries']:,} u64 entries, MIN) {mins} ms, of the four "
+                  f"HQS sum planes (SUM, int64) {sums} ms (each rank, median of 5) [{card}]")
+    print(f"[a12] two ranks on {torch.cuda.get_device_name(0)} over gloo, {len(tasks)} "
+          f"tasks: {time.perf_counter() - t_a12:.1f} s with the ranks' start and loads")
+
+    watch.lap("the sharded frames")
     # ---- 6. times: kernels at the frame's shapes (one orbit chunk; B6 at the
     # parametric frame's, B10 at 4,096 tiles of the HQS chunk) ----
     dargs, dpts = shapes["decode"]
@@ -1709,6 +1899,10 @@ def main(argv=None) -> int:
         "pcr_project:payload": (lambda: project_batches(*pargs, points=ppts, payload=bpay),
                                 lambda: project_plain(*pargs, points=ppts, payload=bpay),
                                 None),
+        **{f"pcr_project:{fmt}": (
+            lambda fa=fmt_args[fmt], f=fmt: project_batches(*fa, points=ppts, color_fmt=f),
+            lambda fa=fmt_args[fmt], f=fmt: project_plain(*fa, points=ppts, color_fmt=f),
+            None) for fmt in COLOR_FMTS},
         "pcr_u64_min": (lambda: u64_min_planes([stream], size),
                         lambda: u64_min_planes_plain([stream], size),
                         lambda: plane3.scatter_reduce_(0, idx3, keys, reduce="amin")),
@@ -1761,6 +1955,10 @@ def main(argv=None) -> int:
         "pcr_project": nbytes(*pargs[:6]) + coords_b,  # 3 u32 outputs per entry
         "pcr_project:hqs": nbytes(*pargs[:6]) + coords_b,
         "pcr_project:payload": nbytes(pargs[0], *pargs[2:6], bpay) + coords_b,  # no colours
+        # raw: the rows of the decoded points only
+        **{f"pcr_project:{fmt}": (nbytes(fa[0], *fa[2:6]) + coords_b
+                                  + nbytes(fa[1][:, :ppts] if fmt == "raw" else fa[1]))
+           for fmt, fa in fmt_args.items()},
         "pcr_u64_min": nbytes(*stream) + 8 * size,
         "pcr_u64_min:frame": sum(nbytes(*p) for p in fparts["colour"]) + 8 * size,
         "pcr_u64_min:hqs": sum(nbytes(*p) for p in fparts["hqs"]) + 8 * size,
@@ -1804,6 +2002,8 @@ def main(argv=None) -> int:
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
         "pcr_project:payload": f"one orbit chunk in batch-payload mode (the batch index), "
                                f"{n:,} entries",
+        **{f"pcr_project:{fmt}": f"the {fmt} scene's orbit chunk in {fmt} mode, {n:,} entries"
+           for fmt in COLOR_FMTS},
         **{f"pcr_u64_min:{row}": f"the orbit frame's {len(fparts[mode])} {mode} parts, "
                                  f"{sum(p[0].numel() for p in fparts[mode]):,} entries"
            for row, mode in (("frame", "colour"), ("hqs", "hqs"))},
@@ -1829,8 +2029,8 @@ def main(argv=None) -> int:
     }
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
-    bound_ops = {"pcr_project": 32 * n, "pcr_project:hqs": 32 * n,
-                 "pcr_project:payload": 32 * n}
+    bound_ops = {s: 32 * n for s in ("pcr_project", "pcr_project:hqs", "pcr_project:payload",
+                                     *(f"pcr_project:{fmt}" for fmt in COLOR_FMTS))}
     kernels = []
     for s, (kern, plain, library) in timed.items():
         k_ms = time_ms(kern, KERNEL_REPS)
@@ -1849,7 +2049,7 @@ def main(argv=None) -> int:
             name=KERNEL_INFO[s][0], route="cuda", source=KERNEL_INFO[s][1],
             replaces=KERNEL_INFO[s][2],
             launches=results[owner]["launches"][sym] if owner else 0,
-            max_abs_err=errs[sym], ms=round(k_ms, 4), device_ms=round(k_dev, 4),
+            max_abs_err=max(errs[sym], errs[s]), ms=round(k_ms, 4), device_ms=round(k_dev, 4),
             kernel_device_ms=None if k_alone is None else round(k_alone, 4),
             plain_ms=round(p_ms, 4), bound_ms=round(bound_ms, 4), bound_by=bound_by,
             library_ms=None if lib_ms is None else round(lib_ms, 4)))
@@ -1965,6 +2165,7 @@ def main(argv=None) -> int:
             raster.xla_exp = xla_exp
         print(f"[cost] {what}: {ms:.4f} ms device (utils/devtime, median of {KERNEL_REPS} "
               f"calls, each behind a spin; orbit, {W}x{H}) [{card}]")
+    watch.lap("times")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)  # as nvidia-smi prints name and power limit
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-// B2: fused projection + BC1 payload + run collapse for Hopper (sm_90a).
+// B2: fused projection + colour payload + run collapse for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_project_kernel`
 // (pcrhpg24_tpu/render/pallas_project.py:83, launched by
@@ -8,7 +8,7 @@
 // batch-relative projection `(coords - anchor) * scale` through rows
 // 0/1/3 of the world-view-projection plus the batch's folded
 // translation, the clip tests, the swizzled 32x32-tile pixel id, the
-// depth key (the f32 bits of w) and the BC1 colour payload.  In colour
+// depth key (the f32 bits of w) and the colour payload.  In colour
 // mode it then collapses runs along each chain (doubling steps up to
 // min(points, 2**steps)) and across the 1024 chain heads (10 steps);
 // non-heads become the sentinel id.  HQS mode writes the stream raw.
@@ -16,8 +16,17 @@
 // batch's value as every entry's payload in place of the BC1 colour and
 // reads no colour words: the debug frames' batch index or LOD count
 // (pcrhpg24_tpu/render/methods/huffman_tpu.py:146-153), in any of the
-// three modes.  It is a template flag of its own (PAY), so the colour
-// and HQS kernels compile as they would without it.
+// three modes.
+// The colour format is a template parameter (FMT): BC1 (the flagship's,
+// pallas_project.py:43-80), BC7 mode 6 and raw (24-bit colour), whose
+// payloads the reference computes in XLA beside its XLA projection
+// (bc1_layout.py:68-106, huffman_tpu.py:67-68,155-161).  Each reads its
+// own layout (render/bc1_layout.py): a thread holds its chain's 4 BC1
+// blocks in 8 registers, its 4 BC7 blocks in 16, and reads a raw colour
+// per entry, one coalesced load.  The batch-payload mode reads no colour
+// and is one more value of FMT (kPay), so the build has four colour
+// instances of each (points, mode) kernel, and the BC1 kernel compiles as
+// it did before the other formats came.
 // Both ladders are the reference's: at step s entry i takes entry i+s's
 // key wherever the two pids are equal, whatever lies between them (so
 // `A B A` merges), and past the end the neighbour is (sentinel, 0, 0).
@@ -68,6 +77,8 @@ constexpr int kPitch = kLanes + 1;         // staged row pitch: conflict-free co
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kRaw = 0, kCollapse = 1, kChain = 2 };  // HQS, colour, colour + heads
+// colour formats (the wrapper's FMT_CODES), and the batch payload
+enum Fmt { kBC1 = 0, kBC7 = 1, kRGB = 2, kPay = 3 };
 
 __device__ __forceinline__ void expand565(uint32_t c, uint32_t& r,
                                           uint32_t& g, uint32_t& b) {
@@ -98,6 +109,29 @@ __device__ __forceinline__ uint32_t bc1_payload(uint32_t w0, uint32_t w1,
          (chan(sel, b0, b1) << 16);
 }
 
+// BC7 mode-6 payload of point i of a block's words w0..w3 (bc1_layout.py:
+// 68-98; render.cu:122-154): 7-bit endpoints with the p bits p0 (lo's top
+// bit) and p1 (hi's bottom bit), the 4-bit index of point i % 16 (the
+// anchor read with p1 as its low bit), weight round(idx * 64 / 15).
+__device__ __forceinline__ uint32_t bc7_payload(uint32_t w0, uint32_t w1,
+                                                uint32_t w2, uint32_t w3, int i) {
+  const uint32_t p0 = w1 >> 31, p1 = w2 & 1u;
+  const uint32_t r0 = (((w0 >> 7) & 0x7Fu) << 1) | p0;
+  const uint32_t r1 = (((w0 >> 14) & 0x7Fu) << 1) | p1;
+  const uint32_t g0 = (((w0 >> 21) & 0x7Fu) << 1) | p0;
+  const uint32_t g1 = ((((w0 >> 28) | (w1 << 4)) & 0x7Fu) << 1) | p1;
+  const uint32_t b0 = (((w1 >> 3) & 0x7Fu) << 1) | p0;
+  const uint32_t b1 = (((w1 >> 10) & 0x7Fu) << 1) | p1;
+  const uint32_t j = static_cast<uint32_t>(i) & 15u;
+  const uint32_t idx = ((j < 8u ? w2 : w3) >> (4u * (j & 7u))) & 0xFu;
+  const uint32_t wgt = (idx * 128u + 15u) / 30u;
+  const uint32_t iw = 64u - wgt;
+  const uint32_t r = (r0 * iw + r1 * wgt + 32u) >> 6;
+  const uint32_t g = (g0 * iw + g1 * wgt + 32u) >> 6;
+  const uint32_t b = (b0 * iw + b1 * wgt + 32u) >> 6;
+  return (r & 0xFFu) | ((g & 0xFFu) << 8) | ((b & 0xFFu) << 16);
+}
+
 // w[k] for a k that may be known only at run time, without local memory
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int k) {
   return k == 0 ? w[0] : k == 1 ? w[1] : k == 2 ? w[2] : w[3];
@@ -115,8 +149,8 @@ struct Args {
   const float* tbc;          // (C,4)
   const int* lodn;           // (C,)
   const int* coords;         // (C,points,3,8,128)
-  const uint32_t* colors_k;  // (C,4,2,8,128)
-  const uint32_t* payload;   // (C,) or null: the BC1 colour
+  const uint32_t* colors_k;  // BC1 (C,4,2,8,128), BC7 (C,4,4,8,128), raw (C,64,8,128)
+  const uint32_t* payload;   // (C,) or null: the colour
   uint32_t* pid;             // (C,points,8,128) each
   uint32_t* dep;
   uint32_t* pay;
@@ -124,14 +158,17 @@ struct Args {
 };
 
 // One thread's chain: the projection of entry i (pallas_project.py:109-126).
-// PAY: every entry's payload is its batch's `payload` word.
-template <bool PAY>
+// FMT kPay: every entry's payload is its batch's `payload` word.
+template <int FMT>
 struct Chain {
+  static constexpr bool PAY = FMT == kPay;
   float t00, t01, t02, t10, t11, t12, t30, t31, t32, sx, sy, sz;
   float tb0, tb1, tb3;
   uint32_t ax, ay, az, sent, bpay;
   int n, wt, width, height;
-  uint32_t cw0[4], cw1[4];
+  uint32_t cw0[4], cw1[4];  // the chain's 4 blocks: BC1's 2 words, BC7's first 2
+  uint32_t cw2[4], cw3[4];  // BC7's last 2 words
+  const uint32_t* craw;     // raw: the chain's colour of point 0
   const int* crd;
 
   __device__ __forceinline__ Chain(const Args& a, int b, int g, int lane) {
@@ -151,16 +188,29 @@ struct Chain {
     sent = static_cast<uint32_t>(wt * ((height + 31) / 32) * 1024);
     const int c = g * kLanes + lane;
     bpay = PAY ? a.payload[b] : 0u;
-    const uint32_t* col = a.colors_k + static_cast<long long>(b) * 8 * kChains + c;
+    if constexpr (FMT == kBC7) {
+      const uint32_t* col = a.colors_k + static_cast<long long>(b) * 16 * kChains + c;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      cw0[k] = PAY ? 0u : col[(k * 2 + 0) * kChains];
-      cw1[k] = PAY ? 0u : col[(k * 2 + 1) * kChains];
+      for (int k = 0; k < 4; ++k) {
+        cw0[k] = col[(k * 4 + 0) * kChains];
+        cw1[k] = col[(k * 4 + 1) * kChains];
+        cw2[k] = col[(k * 4 + 2) * kChains];
+        cw3[k] = col[(k * 4 + 3) * kChains];
+      }
+    } else if constexpr (FMT == kRGB) {
+      craw = a.colors_k + static_cast<long long>(b) * kMaxPoints * kChains + c;
+    } else {
+      const uint32_t* col = a.colors_k + static_cast<long long>(b) * 8 * kChains + c;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        cw0[k] = PAY ? 0u : col[(k * 2 + 0) * kChains];
+        cw1[k] = PAY ? 0u : col[(k * 2 + 1) * kChains];
+      }
     }
     crd = a.coords + static_cast<long long>(b) * a.points * 3 * kChains + c;
   }
 
-  // blk = i >> 4, the entry's BC1 block, passed in so that it can be static
+  // blk = i >> 4, the entry's colour block, passed in so that it can be static
   __device__ __forceinline__ void entry(int i, int blk, uint32_t& pid, uint32_t& dep,
                                         uint32_t& pay) const {
     const uint32_t xi = static_cast<uint32_t>(__ldcs(crd + (i * 3 + 0) * kChains));
@@ -195,7 +245,13 @@ struct Chain {
                          static_cast<uint32_t>(px & 31);
     pid = ok ? swz : sent;
     dep = __float_as_uint(w);
-    pay = PAY ? bpay : bc1_payload(pick4(cw0, blk), pick4(cw1, blk), i);
+    if constexpr (FMT == kBC7)
+      pay = bc7_payload(pick4(cw0, blk), pick4(cw1, blk), pick4(cw2, blk),
+                        pick4(cw3, blk), i);
+    else if constexpr (FMT == kRGB)
+      pay = __ldcs(craw + i * kChains) & 0xFFFFFFu;
+    else
+      pay = PAY ? bpay : bc1_payload(pick4(cw0, blk), pick4(cw1, blk), i);
   }
 };
 
@@ -241,7 +297,7 @@ __device__ __forceinline__ void chain_ladder(uint32_t* sp, uint32_t* sd, uint32_
 }
 
 // POINTS = 0 takes the count from a.points (any 1..64).
-template <int POINTS, int MODE, bool PAY>
+template <int POINTS, int MODE, int FMT>
 __global__ void __launch_bounds__(kThreads, 2)
 project_kernel(const Args a) {
   extern __shared__ uint32_t stage[];  // [3][P][kPitch]: pid, dep, pay
@@ -249,9 +305,9 @@ project_kernel(const Args a) {
   const int P = POINTS ? POINTS : a.points;
   const int b = blockIdx.x / kGroups, g = blockIdx.x % kGroups;  // g: cluster rank
   const int lane = threadIdx.x % kLanes;  // the thread's chain in the group
-  const int slab = threadIdx.x / kLanes;  // its points: slab + 4k (BC1 block k >> 2)
+  const int slab = threadIdx.x / kLanes;  // its points: slab + 4k (block k >> 2)
   const int per = (P + kSlabs - 1) / kSlabs;  // static when POINTS is
-  const Chain<PAY> ch(a, b, g, lane);
+  const Chain<FMT> ch(a, b, g, lane);
   const uint32_t sent = ch.sent;
   const long long row = static_cast<long long>(b) * P * kChains + g * kLanes + lane;
   if (MODE == kRaw) {
@@ -346,9 +402,9 @@ project_kernel(const Args a) {
   }
 }
 
-template <int POINTS, int MODE, bool PAY>
+template <int POINTS, int MODE, int FMT>
 cudaError_t launch(const Args& a, int batches, cudaStream_t stream) {
-  auto kernel = project_kernel<POINTS, MODE, PAY>;
+  auto kernel = project_kernel<POINTS, MODE, FMT>;
   const int smem = MODE == kRaw ? 0 : 3 * a.points * kPitch * 4;
   static bool attr_set = false;
   if (!attr_set) {
@@ -375,23 +431,23 @@ cudaError_t launch(const Args& a, int batches, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <int MODE, bool PAY>
+template <int MODE, int FMT>
 cudaError_t launch_points(const Args& a, int batches, cudaStream_t stream) {
   switch (a.points) {  // the LOD buckets, fully unrolled
-    case 16: return launch<16, MODE, PAY>(a, batches, stream);
-    case 32: return launch<32, MODE, PAY>(a, batches, stream);
-    case 48: return launch<48, MODE, PAY>(a, batches, stream);
-    case 64: return launch<64, MODE, PAY>(a, batches, stream);
-    default: return launch<0, MODE, PAY>(a, batches, stream);
+    case 16: return launch<16, MODE, FMT>(a, batches, stream);
+    case 32: return launch<32, MODE, FMT>(a, batches, stream);
+    case 48: return launch<48, MODE, FMT>(a, batches, stream);
+    case 64: return launch<64, MODE, FMT>(a, batches, stream);
+    default: return launch<0, MODE, FMT>(a, batches, stream);
   }
 }
 
-template <bool PAY>
+template <int FMT>
 cudaError_t launch_mode(const Args& a, int batches, int chain_collapse, int collapse,
                         cudaStream_t stream) {
-  if (!collapse) return launch<0, kRaw, PAY>(a, batches, stream);
-  if (chain_collapse) return launch_points<kChain, PAY>(a, batches, stream);
-  return launch_points<kCollapse, PAY>(a, batches, stream);
+  if (!collapse) return launch<0, kRaw, FMT>(a, batches, stream);
+  if (chain_collapse) return launch_points<kChain, FMT>(a, batches, stream);
+  return launch_points<kCollapse, FMT>(a, batches, stream);
 }
 
 }  // namespace
@@ -401,9 +457,10 @@ extern "C" int pcr_project(const void* frame, const void* anchors,
                            const void* coords, const void* colors_k,
                            const void* payload, void* pid, void* dep, void* pay,
                            int batches, int points, int width, int height,
-                           int steps, int chain_collapse, int collapse,
+                           int steps, int chain_collapse, int collapse, int fmt,
                            void* stream) {
   if (points < 1 || points > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
+  if (fmt < kBC1 || fmt > kRGB) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(frame), static_cast<const int*>(anchors),
                static_cast<const float*>(tbc), static_cast<const int*>(lodn),
                static_cast<const int*>(coords), static_cast<const uint32_t*>(colors_k),
@@ -411,8 +468,11 @@ extern "C" int pcr_project(const void* frame, const void* anchors,
                static_cast<uint32_t*>(dep), static_cast<uint32_t*>(pay), points, width,
                height, steps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = payload ? launch_mode<true>(a, batches, chain_collapse, collapse, s)
-                            : launch_mode<false>(a, batches, chain_collapse, collapse, s);
+  cudaError_t err =
+      payload       ? launch_mode<kPay>(a, batches, chain_collapse, collapse, s)
+      : fmt == kBC7 ? launch_mode<kBC7>(a, batches, chain_collapse, collapse, s)
+      : fmt == kRGB ? launch_mode<kRGB>(a, batches, chain_collapse, collapse, s)
+                    : launch_mode<kBC1>(a, batches, chain_collapse, collapse, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }

@@ -1,16 +1,19 @@
 """Streaming `.tpc` scene resource on torch device tensors.
 
 Counterpart of `pcrhpg24_tpu/engine/native_resource.py:NativeLasData`
-for `.tpc` v2 (fbatch) and v1 (tbatch) scenes with BC1 colours: the same
-header-driven preallocation, detached loader thread, per-frame
-`process()` upload and `budget_batches` residency cap.  Device buffers
-are padded to the render chunk (64 batches) and hold u32 words as int32
-bits.  Both versions also hold the colours in B2's layout (`colors_k`),
-so the projection kernel serves v1 too; the reference projects v1 with
-XLA ops of the same formula and order.  The stream buffer is sized from
-the header's `max_group_words`, which bounds every batch of the file; a
-batch wider than that fails its packing instead of being cut.  Raw/BC7
-colours are ROADMAP A11c.
+for `.tpc` v2 (fbatch) and v1 (tbatch) scenes: the same header-driven
+preallocation, detached loader thread, per-frame `process()` upload and
+`budget_batches` residency cap.  Device buffers are padded to the render
+chunk (64 batches) and hold u32 words as int32 bits.  The colours, BC1
+(v1 and v2), BC7 or raw (v2: the reference's COLOR_COMPRESSION 7 and 0,
+`color_fmt` in the header), are held once, in their format's kernel
+layout (`colors_k`, `render/bc1_layout.py`), the only copy B2 reads: the
+reference also keeps each batch's flat row (`colors`), which no path of
+the port reads (raw colours are 4 B a point).  So B2 serves v1 too,
+where the reference projects with XLA ops of the same formula and order.
+The stream buffer is sized from the header's `max_group_words`, which
+bounds every batch of the file; a batch wider than that fails its
+packing instead of being cut.
 
 `HuffmanNativeData` is the reference `.huffman` scene on the same path,
 with the format conversion at load time (the fused C++ transcode of
@@ -33,11 +36,11 @@ from .. import native as codec_core
 from ..codec.fixed import FixedBatch
 from ..constants import TPU_GROUPS_PER_BATCH, WORKGROUP_SIZE
 from ..formats.huffman_file import read_batch, read_file_header
-from ..formats.native_file import COLOR_WORDS, read_tpc_batch, read_tpc_header
+from ..formats.native_file import read_tpc_batch, read_tpc_header
 from ..render.decode_fixed import pack_fixed_batches
 from ..render.decode_tbatch import pack_native_batches
 from ..render.methods.huffman_tpu import CHUNK
-from ..render.project import colors_kernel_layout
+from ..render.bc1_layout import COLOR_K_SHAPE, colors_kernel_layout
 from .resource import Resource, ResourceState, upload_rows
 
 G = TPU_GROUPS_PER_BATCH
@@ -55,9 +58,7 @@ class NativeLasData(Resource):
         self.path = path
         self.header = read_tpc_header(path)
         self.version = self.header.version
-        if self.header.color_fmt != "bc1":
-            raise NotImplementedError(f"{self.header.color_fmt} colours: their "
-                                      "payload decode is ROADMAP A11c")
+        self.color_fmt = self.header.color_fmt
         self.dataset_points = self.header.num_points
         self.dataset_batches = self.header.num_batches
         nb = self.header.num_batches
@@ -113,8 +114,7 @@ class NativeLasData(Resource):
                 starts=z((B, 3, G, 128)),
             )
         self.dev.update(
-            colors=z((B, COLOR_WORDS["bc1"])),
-            colors_k=z((B, 4, 2, G, 128)),
+            colors_k=z((B, *COLOR_K_SHAPE[self.color_fmt])),
             bbox_min=z((B, 3), torch.float32),
             bbox_max=z((B, 3), torch.float32),
             anchor=z((B, 3)),
@@ -172,8 +172,8 @@ class NativeLasData(Resource):
         for key in keys:
             upload_rows(d[key], start, packed[key])
         colors = np.stack([c for _fb, c in items]).astype(np.uint32)
-        upload_rows(d["colors"], start, colors.view(np.int32))
-        upload_rows(d["colors_k"], start, colors_kernel_layout(colors).view(np.int32))
+        upload_rows(d["colors_k"], start,
+                    colors_kernel_layout(colors, self.color_fmt).view(np.int32))
         # component-wise chain-start minimum: the exact per-batch anchor
         anchors = np.stack([
             np.asarray(fb.start_values).reshape(-1, 3).min(axis=0) for fb in fbs

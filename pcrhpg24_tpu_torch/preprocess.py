@@ -3,13 +3,14 @@
 The port's copy of `pcrhpg24_tpu/preprocess.py`: read LAS records per
 chunk of up to MAX_POINTS_PER_BATCH points, pad the tail batch by
 repeating the last point, Morton-sort, split into 65 536-point batches,
-encode each batch's geometry and BC1 colours, and write the file.  The
+encode each batch's geometry and colours, and write the file.  The
 output's extension picks the format: `.huffman` (the reference's own,
 `preprocess_las`: per-batch delta + clipped-Huffman streams in warp
-order) or `.tpc` (`preprocess_las_tpc`: fbatch v2, or tbatch v1 with
-the 4th argument `huffman`).  Raw and BC7 colours are ROADMAP A11c.
+order, BC1 colours) or `.tpc` (`preprocess_las_tpc`: fbatch v2, or
+tbatch v1 with the 4th argument `huffman`; colours BC1, or on v2 BC7
+or raw with the 5th argument).
 
-Usage: python -m pcrhpg24_tpu_torch.preprocess input.las out.huffman|out.tpc [sort 0|1] [fixed|huffman]
+Usage: python -m pcrhpg24_tpu_torch.preprocess input.las out.huffman|out.tpc [sort 0|1] [fixed|huffman] [bc1|bc7|raw]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 
 from .codec.batch_codec import encode_batch
 from .codec.bc1 import encode_bc1
+from .codec.bc7 import encode_bc7
 from .codec.fixed import encode_fixed_batch
 from .codec.morton import morton_order
 from .codec.native import encode_native_batch
@@ -133,13 +135,26 @@ def preprocess_las_tpc(las_path: str, out_path: str, sort: bool = True,
 
     codec="fixed" writes v2 fbatch blobs (fixed-width, fastest decode —
     the flagship format); codec="huffman" writes v1 bucket-Huffman
-    tbatch blobs (~13% smaller, slower decode).  Colours are BC1.
+    tbatch blobs (~13% smaller, slower decode).
+
+    color_fmt selects the colour payload encoding, the reference's
+    compile-time COLOR_COMPRESSION 0|1|7 (modules/compute/Resources.h:15)
+    as a per-file option: "bc1" (default, 0.5 B/pt), "bc7" (mode 6,
+    1 B/pt), "raw" (4 B/pt, lossless); BC7 and raw need the v2 codec.
     """
-    if color_fmt != "bc1":
-        raise NotImplementedError(f"{color_fmt} colours are ROADMAP A11c")
     if codec not in ("fixed", "huffman"):
         raise ValueError(f"unknown codec {codec!r}")
     encode = encode_fixed_batch if codec == "fixed" else encode_native_batch
+    if color_fmt == "bc1":
+        cenc = encode_bc1
+    elif color_fmt == "bc7":
+        cenc = encode_bc7
+    elif color_fmt == "raw":
+        cenc = lambda c: np.asarray(c, np.uint32) & 0xFFFFFF  # noqa: E731
+    else:
+        raise ValueError(f"unknown color_fmt {color_fmt!r}")
+    if color_fmt != "bc1" and codec != "fixed":
+        raise ValueError("raw/BC7 colors require the fixed (v2) codec")
 
     header = read_header(las_path)
     n_total = header.num_points
@@ -160,7 +175,7 @@ def preprocess_las_tpc(las_path: str, out_path: str, sort: bool = True,
         for s in range(0, len(x), POINTS_PER_WORKGROUP):
             sl = slice(s, s + POINTS_PER_WORKGROUP)
             batches.append(encode(x[sl], y[sl], z[sl]))
-            colors.append(encode_bc1(color[sl]))
+            colors.append(cenc(color[sl]))
         if verbose:
             print(f"tpc chunk {start // MAX_POINTS_PER_BATCH}: {len(batches)} batches")
     write_tpc(
@@ -186,7 +201,8 @@ def main(argv=None):
     sort = bool(int(argv[2])) if len(argv) > 2 else True
     if out_path.endswith(".tpc"):
         codec = argv[3] if len(argv) > 3 else "fixed"
-        preprocess_las_tpc(las_path, out_path, sort, codec=codec)
+        color_fmt = argv[4] if len(argv) > 4 else "bc1"
+        preprocess_las_tpc(las_path, out_path, sort, codec=codec, color_fmt=color_fmt)
     else:
         preprocess_las(las_path, out_path, sort)
     return 0

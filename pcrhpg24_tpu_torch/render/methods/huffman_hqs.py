@@ -24,7 +24,7 @@ import torch
 
 from ...constants import POINTS_PER_THREAD
 from ..hqs import hqs_sums, hqs_sums_plain, resolve_hqs
-from ..project import _bc1_payload
+from ..bc1_layout import bc1_payload
 from ..raster import BACKGROUND, EMPTY, project_points, u64_min_planes, u64_min_planes_plain
 from .huffman_mem_iter import HuffmanMemIter, decode_chunk, live_chunks
 
@@ -43,7 +43,7 @@ def hqs_streams(dev, lod, transform, scale, offset_rel, width: int, height: int,
         i = torch.arange(points, device=pid.device)[None, :, None, None]
         keep = i < lod[sl][:, None, None, None]
         pid = torch.where(keep, pid, torch.full_like(pid, size))
-        pay = _bc1_payload(dev["colors_k"][sl], points).to(torch.int32)
+        pay = bc1_payload(dev["colors_k"][sl], points).to(torch.int32)
         parts.append((pid, dep, pay))
     return parts
 

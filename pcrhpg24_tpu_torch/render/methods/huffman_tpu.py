@@ -3,7 +3,9 @@
 Counterpart of `pcrhpg24_tpu/render/methods/huffman_tpu.py`: per frame,
 device frustum cull + LOD, then for each live 64-batch chunk the
 geometry decode — fbatch (v2, B1) or tbatch (v1, B5) — and the fused
-projection + BC1 + run collapse (B2), then the exact u64-min resolve
+projection + colour payload + run collapse (B2: BC1, or on v2 BC7 or raw
+colours, decoded in the kernel where the reference leaves those two to
+XLA, `huffman_tpu.py:67-68,155-161`), then the exact u64-min resolve
 (B3) over every chunk's stream in one launch, the unswizzle of the
 payload half and the background fill.  B3 writes the depth half too; it
 is unswizzled only when the frame asks for it (`need_depth`: the
@@ -50,13 +52,14 @@ from .huffman_mem_iter import CHUNK, HuffmanMemIter, batch_payload, debug_mode
 def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
                   nchunks: int, cull: bool, points: int = POINTS_PER_THREAD,
                   fmt: str = "fixed", plain: bool = False,
-                  collapse: bool = True, mode: str = "color"):
+                  collapse: bool = True, mode: str = "color", color_fmt: str = "bc1"):
     """Every live chunk's (pid, dep, pay) stream -> (parts, size, device).
 
     frame_params (40,) f32: view(16) | proj_params(6) | lod_floor | B |
     wvp(16); tb (B_pad, 4) f32 per-batch folded translations; scale
     (3,) f32.  `points` is the static LOD bucket: every chain decodes
-    only that prefix.  `fmt` is "fixed" (v2, B1) or "tbatch" (v1, B5).
+    only that prefix.  `fmt` is "fixed" (v2, B1) or "tbatch" (v1, B5);
+    `color_fmt` the format of `dev["colors_k"]` ("bc1", "bc7", "raw").
     `collapse=False` (HQS) keeps every entry.  In `mode`
     "colorize_chunks" or "show_num_points" the payload is each batch's
     index or clamped LOD count (B2's batch-payload mode).  `plain=True` runs every
@@ -96,7 +99,7 @@ def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
         parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl],
                              tb[sl], lod_n[sl], frame12, width, height,
                              points=points, collapse=collapse,
-                             payload=batch_payload(mode, sl, lod_n)))
+                             payload=batch_payload(mode, sl, lod_n), color_fmt=color_fmt))
     return parts, size, lod_n.device
 
 
@@ -104,7 +107,7 @@ def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
                         nchunks: int, cull: bool,
                         points: int = POINTS_PER_THREAD, fmt: str = "fixed",
                         mode: str = "color", need_depth: bool = False,
-                        plain: bool = False):
+                        plain: bool = False, color_fmt: str = "bc1"):
     """One frame -> (fb_depth or None, fb_payload, image): the planes
     (H*W,) int32 u32 bits in linear pixel order, the image (H, W) int32.
 
@@ -116,12 +119,12 @@ def render_frame_native(dev, frame_params, tb, scale, width: int, height: int,
     if mode == "colorize_overdraw":
         parts, size, device = frame_streams(dev, frame_params, tb, scale, width,
                                             height, nchunks, cull, points, fmt,
-                                            plain, collapse=False)
+                                            plain, collapse=False, color_fmt=color_fmt)
         counts = unswizzle_plane(overdraw_counts(parts, size, device), width, height)
         return None, counts, overdraw_image(counts, width, height)
     parts, size, device = frame_streams(dev, frame_params, tb, scale, width,
                                         height, nchunks, cull, points, fmt,
-                                        plain, mode=mode)
+                                        plain, mode=mode, color_fmt=color_fmt)
     if parts:
         fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
     else:
@@ -176,6 +179,7 @@ class HuffmanTpu(HuffmanMemIter):
             nchunks=-(-las.num_batches // CHUNK),
             cull=Debug.frustum_culling_enabled and Debug.update_frustum,
             points=points, fmt="fixed" if las.version == 2 else "tbatch",
+            color_fmt=las.color_fmt,
         )
 
     def frame_mode(self, renderer) -> dict:

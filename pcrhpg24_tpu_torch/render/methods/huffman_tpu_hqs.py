@@ -24,7 +24,7 @@ from .huffman_tpu import HuffmanTpu, frame_streams
 
 def hqs_frame_native(dev, frame_params, tb, scale, width: int, height: int,
                      nchunks: int, cull: bool, points: int = POINTS_PER_THREAD,
-                     fmt: str = "fixed", plain: bool = False):
+                     fmt: str = "fixed", plain: bool = False, color_fmt: str = "bc1"):
     """One HQS frame -> (fb_depth, acc_n, image).
 
     fb_depth and acc_n are (H*W,) int32 planes of u32 bits in linear
@@ -33,7 +33,7 @@ def hqs_frame_native(dev, frame_params, tb, scale, width: int, height: int,
     """
     parts, size, device = frame_streams(dev, frame_params, tb, scale, width,
                                         height, nchunks, cull, points, fmt,
-                                        plain, collapse=False)
+                                        plain, collapse=False, color_fmt=color_fmt)
     if parts:
         planes, sums = ((u64_min_planes_plain, hqs_sums_plain) if plain
                         else (u64_min_planes, hqs_sums))

@@ -1,5 +1,5 @@
-"""Fused projection + BC1 payload + run collapse: kernel B2 and its plain
-version.
+"""Fused projection + colour payload + run collapse: kernel B2 and its
+plain version.
 
 Counterpart of `pcrhpg24_tpu/render/pallas_project.py`.  The CUDA
 kernel (`csrc/project.cu`) replaces `_project_kernel`;
@@ -10,17 +10,22 @@ u32 bits; pid is in the swizzled 32x32-tile id space and carries the
 sentinel `swizzle_dims(width, height)[2]` for clipped, masked and
 collapsed entries.  With a per-batch `payload` (batch-payload mode:
 the debug frames' batch index or LOD count, `huffman_tpu.py:146-153`)
-every entry's payload is its batch's value in place of the BC1 colour.
+every entry's payload is its batch's value in place of the colour.  The
+colour is BC1, BC7 or raw (`color_fmt`), each read from its own layout
+(`bc1_layout`): the reference projects BC7 and raw with XLA ops of the
+same formula and order, and decodes their payloads there.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..constants import POINTS_PER_THREAD, TPU_GROUPS_PER_BATCH
 from ..kernels.build import I, P, Kernel, check_cuda
 from ..u32 import f32_bits, widen
+from .bc1_layout import COLOR_K_SHAPE, PAYLOAD
+# B2's BC1 layout, where the reference has it (`pallas_project.py:267`)
+from .bc1_layout import colors_kernel_layout  # noqa: F401
 from .raster import swizzle_dims
 
 G = TPU_GROUPS_PER_BATCH  # 8
@@ -28,43 +33,9 @@ LANES = 128
 CHAINS = G * LANES
 PTS = POINTS_PER_THREAD  # 64
 
-PROJECT = Kernel("pcr_project", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I])
-
-
-def colors_kernel_layout(colors: np.ndarray) -> np.ndarray:
-    """(B, 8192) u32 BC1 rows -> (B, 4, 2, 8, 128) kernel layout.
-
-    Word order in a row: ((g*128 + l)*4 + blk)*2 + word
-    (render/bc1_layout.py native layout)."""
-    B = colors.shape[0]
-    return np.ascontiguousarray(
-        colors.reshape(B, G, LANES, 4, 2).transpose(0, 3, 4, 1, 2))
-
-
-def _expand565(c):
-    r5 = (c >> 11) & 31
-    g6 = (c >> 5) & 63
-    b5 = c & 31
-    return (r5 << 3) | (r5 >> 2), (g6 << 2) | (g6 >> 4), (b5 << 3) | (b5 >> 2)
-
-
-def _bc1_payload(colors_k, points: int):
-    """(C,4,2,8,128) u32 bits -> (C,points,8,128) int64 R|G<<8|B<<16."""
-    blk = torch.arange(points, device=colors_k.device) >> 4
-    words = widen(colors_k)[:, blk]  # (C, points, 2, 8, 128)
-    w0, w1 = words[:, :, 0], words[:, :, 1]
-    r0, g0, b0 = _expand565(w0 & 0xFFFF)
-    r1, g1, b1 = _expand565(w0 >> 16)
-    i = torch.arange(points, device=colors_k.device)[None, :, None, None]
-    sel = (w1 >> (2 * (i & 15))) & 3
-
-    def chan(a, b):
-        return torch.where(
-            sel == 0, a,
-            torch.where(sel == 1, b,
-                        torch.where(sel == 2, (a * 2 + b) // 3, (a + b * 2) // 3)))
-
-    return chan(r0, r1) | (chan(g0, g1) << 8) | (chan(b0, b1) << 16)
+PROJECT = Kernel("pcr_project", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I])
+# the kernel's colour-format argument
+FMT_CODES = {"bc1": 0, "bc7": 1, "raw": 2}
 
 
 def _key_less(ds, ps, d, p):
@@ -80,14 +51,17 @@ def _shift_up(a, s: int, fill: int, dim: int):
 
 def project_plain(coords, colors_k, anchors, tbc, lodn, frame,
                   width: int, height: int, points: int = PTS, steps: int = 6,
-                  chain_collapse: bool = True, collapse: bool = True, payload=None):
+                  chain_collapse: bool = True, collapse: bool = True, payload=None,
+                  color_fmt: str = "bc1"):
     """Pure-torch version of `project_batches` on any device.
 
-    coords (C,points,3,8,128) i32, colors_k (C,4,2,8,128) i32 (u32
-    bits), anchors (C,3) i32, tbc (C,4) f32, lodn (C,) i32, frame (12,)
-    f32 (wvp rows 0/1/3 by columns 0..2, then scale xyz), payload None
-    or (C,) i32 (u32 bits) per batch.
+    coords (C,points,3,8,128) i32, colors_k (C, *COLOR_K_SHAPE[color_fmt])
+    i32 (u32 bits, `bc1_layout`), anchors (C,3) i32, tbc (C,4) f32,
+    lodn (C,) i32, frame (12,) f32 (wvp rows 0/1/3 by columns 0..2, then
+    scale xyz), payload None or (C,) i32 (u32 bits) per batch.
     """
+    if color_fmt not in PAYLOAD:
+        raise ValueError(f"unknown color_fmt {color_fmt!r}")
     wt, _ht, size = swizzle_dims(width, height)
     C = coords.shape[0]
     bc = lambda a: a[:, None, None, None]
@@ -111,7 +85,7 @@ def project_plain(coords, colors_k, anchors, tbc, lodn, frame,
     pid = torch.where(ok, swz.to(torch.int64), torch.full_like(swz, size, dtype=torch.int64))
     d = widen(f32_bits(w))
     if payload is None:
-        p = _bc1_payload(colors_k, points)
+        p = PAYLOAD[color_fmt](colors_k, points)
     else:
         p = widen(payload)[:, None, None, None].expand(d.shape).clone()
 
@@ -151,24 +125,31 @@ def project_plain(coords, colors_k, anchors, tbc, lodn, frame,
 
 def project_batches(coords, colors_k, anchors, tbc, lodn, frame,
                     width: int, height: int, points: int = PTS, steps: int = 6,
-                    chain_collapse: bool = True, collapse: bool = True, payload=None):
-    """B2: same arguments and outputs as `pallas_project.project_batches`.
+                    chain_collapse: bool = True, collapse: bool = True, payload=None,
+                    color_fmt: str = "bc1"):
+    """B2: the arguments and outputs of `pallas_project.project_batches`,
+    and the colour format of `colors_k` ("bc1", "bc7" or "raw", each in
+    its `bc1_layout` kernel layout), whose payload B2 decodes in the
+    kernel where the reference leaves BC7 and raw to XLA
+    (`huffman_tpu.py:67-68,155-161`).
 
     CUDA tensors launch the kernel; CPU tensors take `project_plain`.
     `chain_collapse` applies only with `collapse` (colour mode); HQS
     mode (`collapse=False`) writes every entry raw.  `payload` (C,) i32
-    switches to batch-payload mode in either.
+    switches to batch-payload mode in either, which reads no colours.
     """
     chain_collapse = chain_collapse and collapse
     if not coords.is_cuda:
         return project_plain(coords, colors_k, anchors, tbc, lodn, frame,
                              width, height, points, steps, chain_collapse,
-                             collapse, payload)
+                             collapse, payload, color_fmt)
+    if color_fmt not in FMT_CODES:
+        raise ValueError(f"unknown color_fmt {color_fmt!r}")
     if not 0 < points <= PTS:
         raise ValueError(f"points must be in 1..{PTS}, got {points}")
     C = coords.shape[0]
     check_cuda("coords", coords, torch.int32, (C, points, 3, G, LANES))
-    check_cuda("colors_k", colors_k, torch.int32, (C, 4, 2, G, LANES))
+    check_cuda("colors_k", colors_k, torch.int32, (C, *COLOR_K_SHAPE[color_fmt]))
     check_cuda("anchors", anchors, torch.int32, (C, 3))
     check_cuda("tbc", tbc, torch.float32, (C, 4))
     check_cuda("lodn", lodn, torch.int32, (C,))
@@ -182,5 +163,5 @@ def project_batches(coords, colors_k, anchors, tbc, lodn, frame,
                        lodn.data_ptr(), coords.data_ptr(), colors_k.data_ptr(),
                        None if payload is None else payload.data_ptr(),
                        *(o.data_ptr() for o in outs), C, points, width, height,
-                       steps, int(chain_collapse), int(collapse))
+                       steps, int(chain_collapse), int(collapse), FMT_CODES[color_fmt])
     return tuple(outs)

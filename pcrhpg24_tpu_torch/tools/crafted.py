@@ -28,6 +28,13 @@ the chain heads repeat with other heads between them; depths take four
 values, so keys tie and the payload breaks the tie; `lodn` is partial
 (one batch full, one empty).
 
+`colors_k` gives a chunk's BC7 or raw colours in B2's layout: raw
+words at random (their top byte too, which B2 drops), and BC7 mode-6
+blocks (`bc7_rows`) that reach the format's
+fields: every pattern of the two p bits, endpoints 0 and 127 beside
+random ones, indices all 0, all 15 and random, and every value of the
+3-bit anchor field, which the decoder reads with p1 as its low bit.
+
 `hqs_streams` builds a (pid, dep, pay) stream and its depth plane for
 the HQS sums: every entry on one pixel, two pixels alternating along
 rows and columns, half the entries on sentinel pids, pixels whose depth
@@ -184,6 +191,49 @@ def batch_payloads(batches: int, seed: int = 0) -> np.ndarray:
     pay = pay[runs]
     pay[: min(batches, 2)] = (0, 0xFFFFFFFF)[: min(batches, 2)]
     return pay
+
+
+def bc7_rows(batches: int, seed: int = 0) -> np.ndarray:
+    """-> (batches, 16384) u32 rows of BC7 mode-6 blocks (`codec/bc7.py`'s
+    layout).  Block k: p0 = k & 1, p1 = (k >> 1) & 1; its six 7-bit
+    endpoints each 0, 127 or random; its indices (k >> 2) % 4: all 0,
+    all 15, random, random with the anchor field (k >> 4) % 8; the mode
+    and alpha bits, which the decoder ignores, random."""
+    rng = np.random.default_rng(seed)
+    nb = batches * 4096
+    k = np.arange(nb, dtype=np.uint64)
+    u = lambda v: np.asarray(v, np.uint64)  # noqa: E731
+    ends = rng.integers(0, 128, (nb, 6))
+    pick = rng.integers(0, 3, (nb, 6))
+    ends = u(np.where(pick == 0, 0, np.where(pick == 1, 127, ends)))
+    lo = u(rng.integers(0, 128, nb)) | (u(rng.integers(0, 2**14, nb)) << u(49))
+    for f in range(6):
+        lo |= ends[:, f] << u(7 + 7 * f)
+    lo |= (k & u(1)) << u(63)
+    rand = rng.integers(0, 2**63, nb, dtype=np.int64).astype(np.uint64) << u(1)
+    kind = (k >> u(2)) % u(4)
+    hi = np.where(kind == 0, u(0), np.where(kind == 1, ~u(0), rand))
+    anchor = ((k >> u(4)) % u(8)) << u(1)
+    hi = np.where(kind == 3, (hi & ~u(0xE)) | anchor, hi)
+    hi = (hi & ~u(1)) | ((k >> u(1)) & u(1))
+    mask = u(0xFFFFFFFF)
+    words = np.stack([lo & mask, lo >> u(32), hi & mask, hi >> u(32)], -1)
+    return words.astype(np.uint32).reshape(batches, 16384)
+
+
+def colors_k(batches: int, color_fmt: str, seed: int = 0) -> np.ndarray:
+    """-> (batches, *bc1_layout.COLOR_K_SHAPE[color_fmt]) u32: a chunk's
+    BC7 blocks (`bc7_rows`) or raw words (random, top byte included) in
+    B2's layout."""
+    from ..render.bc1_layout import colors_kernel_layout
+
+    if color_fmt == "bc7":
+        return colors_kernel_layout(bc7_rows(batches, seed), "bc7")
+    if color_fmt != "raw":
+        raise ValueError(f"no crafted {color_fmt!r} colours")
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 2**32, (batches, 65536), dtype=np.uint64).astype(np.uint32)
+    return colors_kernel_layout(rows, "raw")
 
 
 def _batch_coords(deltas: np.ndarray, rng):

@@ -159,9 +159,10 @@ def test_budget_batches(tpc, monkeypatch):
     assert las.resident_limited and ref.resident_limited
     assert las.num_batches_loaded == ref.num_batches_loaded == 71
     got_dev = dev_to_numpy(las.dev)
-    assert got_dev.keys() == ref.dev.keys()
+    assert got_dev.keys() == ref.dev.keys() - {"colors"}  # held as `colors_k` alone
     for k, v in ref.dev.items():
-        np.testing.assert_array_equal(got_dev[k], np.asarray(v), err_msg=k)
+        if k != "colors":
+            np.testing.assert_array_equal(got_dev[k], np.asarray(v), err_msg=k)
     parts, got, want, lod = _frames(las, ref, CORNER, monkeypatch)
     assert _live(lod) == [False, True] and lod[64:71].any()
     assert parts == 1

@@ -116,8 +116,12 @@ def test_native_resource_dev_equal(scene):
     tpc, ref, ref_dev = scene
     las = NativeLasData.create(tpc, "cpu").wait_loaded()
     got = dev_to_numpy(las.dev)
-    assert got.keys() == ref_dev.keys()
+    # the colours are held once, in B2's layout (`colors_k`, compared here
+    # with the reference's): no path of the port reads the flat rows
+    assert got.keys() == ref_dev.keys() - {"colors"}
     for k, v in ref_dev.items():
+        if k == "colors":
+            continue
         assert got[k].dtype == v.dtype, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
     np.testing.assert_array_equal(las.anchor_i, ref.anchor_i)

@@ -192,8 +192,10 @@ def test_native_data_dev_equal(scene):
     las = HuffmanNativeData.create(huf, "cpu").wait_loaded()
     got = dev_to_numpy(las.dev)
     ref_dev = {k: np.asarray(v) for k, v in ref.dev.items()}
-    assert got.keys() == ref_dev.keys()
+    assert got.keys() == ref_dev.keys() - {"colors"}  # held as `colors_k` alone
     for k, v in ref_dev.items():
+        if k == "colors":
+            continue
         assert got[k].dtype == v.dtype, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
     np.testing.assert_array_equal(las.anchor_i, ref.anchor_i)

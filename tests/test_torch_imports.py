@@ -92,6 +92,8 @@ def test_no_source_imports_the_jax_package(tmp_path):
     files = sorted((REPO / "pcrhpg24_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 30
+    parallel = REPO / "pcrhpg24_tpu_torch" / "parallel"
+    assert {parallel / f for f in ("mesh.py", "mesh_native.py", "dryrun.py")} <= set(files)
     bad = [hit for f in files for hit in _imports_of_the_jax_package(f)]
     assert not bad, bad
     # the scan sees what it looks for
@@ -99,6 +101,27 @@ def test_no_source_imports_the_jax_package(tmp_path):
     probe.write_text("import pcrhpg24_tpu.constants\nfrom pcrhpg24_tpu import app\n"
                      "from pcrhpg24_tpu_torch import app as ok\n")
     assert len(_imports_of_the_jax_package(probe)) == 2
+
+
+def test_rank_processes_load_no_jax(tmp_path):
+    """The sharded frames' rank entry point (`python -m
+    pcrhpg24_tpu_torch.parallel.dryrun`), run as a rank of a one-rank
+    gloo group on the reference's tiny `.huffman` scene, loads nothing of
+    jax or the JAX package."""
+    from __graft_entry__ import _tiny_scene
+    from pcrhpg24_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    scene = {k: np.asarray(v) for k, v in _tiny_scene(1).items()}
+    transform = np.eye(4, dtype=np.float32)
+    transform[3] = (0.0, 0.0, 1e-3, 1.0)
+    np.savez(tmp_path / "tiny.npz", **scene, lod_n=np.full(1, 64, np.int32),
+             transform=transform, scale=np.full(3, 0.01, np.float32),
+             offset_rel=np.zeros(3, np.float32))
+    task = dict(kind="huffman", name="tiny", scene=str(tmp_path / "tiny.npz"), dp=1, sp=1,
+                width=64, height=64)
+    res = dryrun_multichip(1, [task], "gloo", "cpu", workdir=str(tmp_path), reps=0)
+    assert res["foreign_modules"] == []
+    assert res["tiny"]["ranks"][0]["frames"]["frame"]["equal"]
 
 
 def test_cuda_device_raises_without_a_card():
@@ -143,7 +166,9 @@ def test_cpu_tensors_never_launch():
 @pytest.mark.parametrize("scene,item", [("raw.tpc", "A11c")])
 def test_unported_scene_kinds_name_their_roadmap_item(tmp_path, scene, item):
     """A `.tpc` with raw colours, written by the reference's preprocessor:
-    the port has no decode of its payload yet."""
+    the last scene kind the port refused, until its ROADMAP item (A11c)
+    ported the raw and BC7 payloads.  The app now builds both `.tpc`
+    methods on it, over its raw colours."""
     from pcrhpg24_tpu.formats.las import write_las
     from pcrhpg24_tpu.preprocess import preprocess_las_tpc
 
@@ -155,8 +180,9 @@ def test_unported_scene_kinds_name_their_roadmap_item(tmp_path, scene, item):
     path = str(tmp_path / scene)
     preprocess_las_tpc(las, path, verbose=False, color_fmt=scene.split(".")[0])
     r = Renderer(64, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        app.build_methods(r, path)
+    methods = app.build_methods(r, path)
+    assert [m.name for m in methods] == ["huffman_tpu", "huffman_tpu_hqs"], item
+    assert all(m.las.color_fmt == "raw" for m in methods)
 
 
 def test_parametric_scene_builds_its_method():
