@@ -138,8 +138,8 @@ Phases, each of which exits non-zero on failure:
     colour and HQS frames of the BC1 and BC7 `.tpc` v2 scenes (the BC7
     one with its last batch left out, so that dp = 2 does not divide
     the batch count: ROADMAP C4) as dp = 2 x sp = 1 and dp = 1 x sp = 2
-    at the orbit view, and the `.huffman` path on the `.huffman`
-    scene's first 5 batches in both layouts; each rank holds its rows to
+    at the orbit view, and the `.huffman` path on the whole `.huffman`
+    scene (256 batches) in both layouts; each rank holds its rows to
     the single-process frame; the all-reduce of a 1920x1080 u64 plane
     (MIN) and of the four HQS sum planes (SUM) is timed;
  6. times: median device frame (CUDA events), points/s, and each kernel
@@ -1802,16 +1802,12 @@ def main(argv=None) -> int:
             tasks.append(dict(name=f"{fmt} {dp}x{sp}", kind="tpc", scene=path, budget=budget,
                               dp=dp, sp=sp, width=W, height=H, lod=1.0, views=a12_views,
                               modes=["color", "hqs"]))
-    # the .huffman path on the scene's first 5 batches, at the orbit camera
-    hb = min(5, huf.num_batches)
-    hscene = {k: hd[k][:hb].cpu().numpy() for k in REF_KEYS if k not in WHOLE_BUFFERS}
-    for k, at in (("encoding", "enc_offsets"), ("separate", "sep_offsets")):
-        end = int(hd[at][hb]) if hb < huf.num_batches else hd[k].numel()
-        hscene[k] = hd[k][:max(end, 1)].cpu().numpy()
+    # the .huffman path on the whole scene, at the orbit camera
+    hscene = {k: hd[k].cpu().numpy() for k in REF_KEYS}
     r.apply_setting(Setting(**VIEWS["orbit"]))
     r.controls_update()
     npz = os.path.join(REPO, "out", "chip_smoke_a12_huffman.npz")
-    np.savez(npz, **hscene, lod_n=np.full(hb, 64, np.int32),
+    np.savez(npz, **hscene, lod_n=np.full(huf.num_batches, PTS, np.int32),
              transform=(r.camera.proj() @ r.camera.view()).astype(np.float32),
              scale=np.asarray(huf.scale, np.float32),
              offset_rel=(np.asarray(huf.offset) - np.asarray(huf.las_min)).astype(np.float32))
@@ -1823,7 +1819,7 @@ def main(argv=None) -> int:
     for t in tasks:
         run = a12[t["name"]]
         spans = [(x["start"], x["stop"]) for x in run["ranks"]]
-        if t["name"] in ("bc7 2x1", "huffman 2x1"):  # dp does not divide the batches
+        if t["name"] == "bc7 2x1":  # dp does not divide the batches
             n_b = run["ranks"][0]["batches"]
             check(n_b % 2 == 1 and spans == [(0, n_b // 2 + 1), (n_b // 2 + 1, n_b)],
                   f"A12 {t['name']}: shards {spans} of {n_b} batches")

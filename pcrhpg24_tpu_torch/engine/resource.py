@@ -25,7 +25,7 @@ import torch
 from .. import device_of
 from ..constants import RENDER_CHUNK_BATCHES, WARP_SIZE, WARPS_PER_BATCH, WORKGROUP_SIZE
 from ..formats.huffman_file import BatchDump, read_batch, read_file_header
-from ..render.project import colors_kernel_layout
+from ..render.bc1_layout import colors_kernel_layout
 
 
 class ResourceState(Enum):

@@ -38,7 +38,8 @@ import torch.distributed as dist
 
 from ..render.hqs import hqs_sums, resolve_hqs
 from ..render.methods.huffman_tpu import CHUNK, frame_streams
-from ..render.raster import TILE_PX, key_plane, resolve, swizzle_dims, u64_min_planes
+from ..render.raster import (key_plane, resolve, swizzle_dims, u64_min_planes,
+                             unswizzle_plane)
 from ..u32 import INT64_MIN, MASK32, split_key, widen
 
 
@@ -110,17 +111,6 @@ def shard_frame(args: dict, dev: dict, start: int, stop: int, loaded: int) -> di
     return out
 
 
-def unswizzle_rows(fb, width: int, height: int, row0: int, rows: int):
-    """Rows [row0, row0 + rows) of `raster.unswizzle_plane(fb, width,
-    height)`, unswizzling only the 32-row tiles that hold them."""
-    wt, ht, _ = swizzle_dims(width, height)
-    t0, t1 = row0 // TILE_PX, -(-(row0 + rows) // TILE_PX)
-    img = fb.reshape(ht, wt, TILE_PX, TILE_PX)[t0:t1].permute(0, 2, 1, 3)
-    img = img.reshape((t1 - t0) * TILE_PX, wt * TILE_PX)
-    r = row0 - t0 * TILE_PX
-    return img[r:r + rows, :width].reshape(-1)
-
-
 def all_reduce_min_u64(plane, group):
     """Per-entry u64 min over the group of a (size,) int64 plane of u64
     bits (all ones: EMPTY), in place: one int64 MIN on the biased key."""
@@ -155,7 +145,7 @@ def flagship_frame(mesh: Mesh, args: dict):
     _parts, plane = _local_plane(args, collapse=True)
     all_reduce_min_u64(plane, mesh.dp_group)
     _dep, pay = split_key(plane)
-    return resolve(unswizzle_rows(pay, W, H, row0, rows), W, rows)
+    return resolve(unswizzle_plane(pay, W, H)[row0 * W:(row0 + rows) * W], W, rows)
 
 
 def flagship_hqs(mesh: Mesh, args: dict):
@@ -175,5 +165,5 @@ def flagship_hqs(mesh: Mesh, args: dict):
         acc = torch.zeros((4, size), dtype=torch.int64, device=plane.device)
     dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.dp_group)
     acc = (acc & MASK32).to(torch.int32)  # u32 sums wrap mod 2**32
-    planes = [unswizzle_rows(a, W, H, row0, rows) for a in acc]
+    planes = [unswizzle_plane(a, W, H)[row0 * W:(row0 + rows) * W] for a in acc]
     return resolve_hqs(*planes, W, rows)

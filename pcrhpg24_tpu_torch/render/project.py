@@ -24,8 +24,6 @@ from ..constants import POINTS_PER_THREAD, TPU_GROUPS_PER_BATCH
 from ..kernels.build import I, P, Kernel, check_cuda
 from ..u32 import f32_bits, widen
 from .bc1_layout import COLOR_K_SHAPE, PAYLOAD
-# B2's BC1 layout, where the reference has it (`pallas_project.py:267`)
-from .bc1_layout import colors_kernel_layout  # noqa: F401
 from .raster import swizzle_dims
 
 G = TPU_GROUPS_PER_BATCH  # 8

@@ -52,7 +52,7 @@ from pcrhpg24_tpu_torch.render.decode_fixed import decode_fixed_plain
 from pcrhpg24_tpu_torch.render.methods.huffman_hqs import HuffmanHQS, hqs_huffman_frame
 from pcrhpg24_tpu_torch.render.methods.huffman_mem_iter import HuffmanMemIter, mem_iter_frame
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu import HuffmanTpu, render_frame_native
-from pcrhpg24_tpu_torch.render.project import colors_kernel_layout
+from pcrhpg24_tpu_torch.render.bc1_layout import colors_kernel_layout
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 256, 144

@@ -25,6 +25,7 @@ from pcrhpg24_tpu.render.native_decode_xla import decode_fixed_xla
 from pcrhpg24_tpu.render.pallas_decode_fixed import pack_fixed_batches
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 from pcrhpg24_tpu_torch.render import project as port
+from pcrhpg24_tpu_torch.render.bc1_layout import colors_kernel_layout
 from pcrhpg24_tpu_torch.tools import crafted
 from pcrhpg24_tpu_torch.u32 import from_u32
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
@@ -60,7 +61,7 @@ def scene(tmp_path_factory):
 
 
 def test_colors_kernel_layout_equal(scene):
-    got = port.colors_kernel_layout(scene["colors"])
+    got = colors_kernel_layout(scene["colors"])
     want = np.asarray(ref.colors_kernel_layout(scene["colors"]))
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
@@ -104,7 +105,7 @@ CASES = [  # (frame, points, lodn, collapse, chain_collapse)
 def test_project_plain_bit_exact(scene, kind, points, lodn, collapse, chain):
     frame, tbc = _frame(scene, kind)
     coords = scene["coords"][:, :points].copy()
-    colors_k = port.colors_kernel_layout(scene["colors"])
+    colors_k = colors_kernel_layout(scene["colors"])
     anchors = scene["anchors"].astype(np.int32)
     lodn = np.asarray(lodn, np.int32)
     got = port.project_batches(

@@ -47,7 +47,7 @@ from pcrhpg24_tpu_torch.render.decode_tbatch import (
 )
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu import HuffmanTpu, render_frame_native
 from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import HuffmanTpuHqs, hqs_frame_native
-from pcrhpg24_tpu_torch.render.project import colors_kernel_layout
+from pcrhpg24_tpu_torch.render.bc1_layout import colors_kernel_layout
 from pcrhpg24_tpu_torch.tools import crafted
 from pcrhpg24_tpu_torch.u32 import from_u32, to_u32
 from tests.torch_fixtures import one_torch_thread  # noqa: F401  (autouse)
