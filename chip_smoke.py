@@ -61,7 +61,13 @@ Phases, each of which exits non-zero on failure:
     part orders, and on 2**24 + 1 entries of one pixel; B3 and B4 on a
     crafted Potree part (`crafted.potree_part`: 2,000 nodes, each a run of
     nearby pixels in random order, culled nodes and budget tails), in
-    one call and in two groups into a running plane and accumulator; B10 on crafted
+    one call and in two groups into a running plane and accumulator; B3
+    and B4 in both layouts (`layout="flat"`, the `.las` and Potree
+    parts' kernels, and `"chain"`) on flat crafted streams
+    (`crafted.flat_streams`: one pixel over 2**24 + 1 entries, whose B4
+    sums wrap, runs of one pixel along consecutive entries, random
+    pixels) in 4 and in 70 uneven parts none a multiple of the flat
+    tile's 512 entries, both part orders; B10 on crafted
     tiles (`crafted.tile_keys`: one triple per tile, sorted, reverse
     sorted, k0 and k1 tied so that k2 decides, INT32_MIN, INT32_MAX and
     the sign boundary in every key, repeated triples, the HQS sentinel
@@ -99,18 +105,22 @@ Phases, each of which exits non-zero on failure:
     baselines: `loop_las`, `loop_las2`, `loop_las_hqs`, `basic`, the
     four 2021 variants and `2021 hqs`) at the `.tpc` paths' four views,
     and `basic` on the multi-file scene at the orbit view: B3 exactly
-    once a frame, B4 exactly once an HQS frame and no other kernel; B3
-    and B4 also held against their plain versions on the `loop_las_hqs`
-    orbit frame's parts; the Potree scene written by the port's
+    once a frame, B4 exactly once an HQS frame, both in their flat
+    layout (`pcr_u64_min_flat`, `pcr_hqs_sums_flat`), and no other
+    kernel; B3 and B4 in both layouts also held against their plain
+    versions on the `loop_las_hqs` orbit frame's parts, and the
+    `[groups]` lines count the atomic sets of each layout there; the Potree scene written by the port's
     `synth_potree` (`--potree-points`, under `--potree-budget` resident
     points) and loaded once through the app's `build_methods` and
     `wait_loaded`, with a mid-load frame of each method, then
-    `loop_nodes` (B3 alone) and `loop_nodes_hqs` (B3 and B4 alone) through
+    `loop_nodes` (B3 alone) and `loop_nodes_hqs` (B3 and B4 alone, in
+    their flat layout) through
     `Renderer.loop` at three views (the reference's 1B-point run's steady
     camera, an overview, and a corner close-up that must leave a
     16.7M-point chunk culled), unbudgeted and at `Debug.node_budget = 2`,
-    whose compact frame must also equal the masked frame; B3 and B4
-    held against their plain versions on the steady frame's parts.
+    whose compact frame must also equal the masked frame; B3 and B4 in
+    both layouts held against their plain versions on the steady
+    frame's parts, and their `[groups]` lines.
     Each listed kernel must have launched (B3
     exactly once per frame on the `.tpc`, `.huffman` and `.las` paths),
     and each image (and on the `.las` paths each plane left in
@@ -148,9 +158,15 @@ Phases, each of which exits non-zero on failure:
     orbit chunk; B6 at the parametric frame's); B2 in colour, HQS and
     batch-payload mode, and in BC7 and raw mode on those scenes' orbit
     chunk (five rows); B3 per chunk and over the orbit
-    frame's parts in one call, colour and HQS (three rows); B3 and B4
-    over the `loop_las` orbit frame's parts (two more rows), and over the
-    `loop_nodes` steady frame's parts (two more); the device
+    frame's parts in one call, colour and HQS (three rows); B3 and B4 in
+    their flat layout over the `loop_las` orbit frame's parts (two more
+    rows), and over the `loop_nodes` steady frame's parts (two more),
+    each with a model of the L2 sectors of its random accesses (the
+    `[l2 model]` lines: counted from the inputs, not measured) and the
+    chain layout's kernel on the same parts; the flat layout's kernels on
+    the chain rows' parts (orbit chunk, the frame's parts), held to the
+    chain kernels' planes; `index_add_` (the B4 rows' library call) adds
+    the accepted entries only, the accept test left out of its time; the device
     time of the `.las` projections (torch ops) of `loop_las`, `basic`
     and `2021 early-z` at the orbit view; B4's and B3's
     planes handed on as
@@ -240,26 +256,27 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                         "pcrhpg24_tpu/render/pallas_merge.py:467"),
     "pcr_hqs_sums": ("B4 HQS blend sums", "pcrhpg24_tpu_torch/csrc/hqs.cu",
                      "pcrhpg24_tpu/render/pallas_hqs.py:185"),
-    # B3 and B4 where the `.las` methods' XLA resolves stood: every chunk of
-    # a frame in one launch, linear pixel ids
-    "pcr_u64_min:las": ("B3 u64-min resolve, one loop_las frame's parts",
-                        "pcrhpg24_tpu_torch/csrc/raster.cu",
-                        "pcrhpg24_tpu/render/pallas_merge.py:467 (on the .las path: XLA "
-                        "sorted_scatter_u64_min, raster.py:125)"),
-    "pcr_hqs_sums:las": ("B4 HQS blend sums, one loop_las_hqs frame's parts",
-                         "pcrhpg24_tpu_torch/csrc/hqs.cu",
-                         "pcrhpg24_tpu/render/pallas_hqs.py:185 (on the .las path: XLA "
-                         "scatter-adds, methods/loop_las.py:415-418)"),
+    # B3 and B4 in their flat layout (`tiles::kFlat`): where the `.las`
+    # methods' XLA resolves stood, every chunk of a frame in one launch,
+    # linear pixel ids, one entry a point in file order
+    "pcr_u64_min_flat": ("B3 u64-min resolve, flat layout, one loop_las frame's parts",
+                         "pcrhpg24_tpu_torch/csrc/raster.cu",
+                         "pcrhpg24_tpu/render/pallas_merge.py:467 (on the .las path: XLA "
+                         "sorted_scatter_u64_min, raster.py:125)"),
+    "pcr_hqs_sums_flat": ("B4 HQS blend sums, flat layout, one loop_las_hqs frame's parts",
+                          "pcrhpg24_tpu_torch/csrc/hqs.cu",
+                          "pcrhpg24_tpu/render/pallas_hqs.py:185 (on the .las path: XLA "
+                          "scatter-adds, methods/loop_las.py:415-418)"),
     # and where the Potree frames' resolves stand: a frame's live chunks,
     # each a part of node-ordered points
-    "pcr_u64_min:potree": ("B3 u64-min resolve, one loop_nodes frame's parts",
-                           "pcrhpg24_tpu_torch/csrc/raster.cu",
-                           "pcrhpg24_tpu/render/pallas_merge.py:467 (dense_from_sorted_rows, "
-                           "methods/loop_nodes.py:116)"),
-    "pcr_hqs_sums:potree": ("B4 HQS blend sums, one loop_nodes_hqs frame's parts",
-                            "pcrhpg24_tpu_torch/csrc/hqs.cu",
-                            "pcrhpg24_tpu/render/pallas_hqs.py:185 (hqs_sums_from_rows, "
-                            "methods/loop_nodes.py:361)"),
+    "pcr_u64_min_flat:potree": ("B3 u64-min resolve, flat layout, one loop_nodes frame's parts",
+                                "pcrhpg24_tpu_torch/csrc/raster.cu",
+                                "pcrhpg24_tpu/render/pallas_merge.py:467 (dense_from_sorted_rows, "
+                                "methods/loop_nodes.py:116)"),
+    "pcr_hqs_sums_flat:potree": ("B4 HQS blend sums, flat layout, one loop_nodes_hqs frame's "
+                                 "parts", "pcrhpg24_tpu_torch/csrc/hqs.cu",
+                                 "pcrhpg24_tpu/render/pallas_hqs.py:185 (hqs_sums_from_rows, "
+                                 "methods/loop_nodes.py:361)"),
     "pcr_decode_native": ("B5 tbatch decode", "pcrhpg24_tpu_torch/csrc/decode_native.cu",
                           "pcrhpg24_tpu/render/pallas_decode.py:55"),
     # B6' (pallas_merge.py:278) is the same function: this kernel serves both
@@ -304,7 +321,8 @@ MAIN_PATHS = [
 ]
 # the `.las` methods, the source paper's baselines, in the app's order:
 # (method, kernels it must launch; every other kernel must not launch)
-LAS_METHODS = [(name, ("pcr_u64_min", "pcr_hqs_sums") if "hqs" in name else ("pcr_u64_min",))
+LAS_METHODS = [(name, ("pcr_u64_min_flat", "pcr_hqs_sums_flat") if "hqs" in name
+                else ("pcr_u64_min_flat",))
                for name in ("loop_las", "loop_las2", "loop_las_hqs", "basic", "2021 early-z",
                             "2021 early-z & reduce", "2021 dedup", "GL_POINTS", "2021 hqs")]
 # the (path, view) whose launches are reported; None: reached by no method
@@ -319,10 +337,10 @@ OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2"
          "pcr_merge_nk1": ("parametric", "near"), "pcr_merge_heads": None,
          "pcr_hqs_sorted": None, "pcr_tile_sort3": None,
          "pcr_decode_huffman": ("colour huffman", "orbit"),
-         "pcr_u64_min:las": ("las loop_las", "orbit"),
-         "pcr_hqs_sums:las": ("las loop_las_hqs", "orbit"),
-         "pcr_u64_min:potree": ("potree loop_nodes", "steady"),
-         "pcr_hqs_sums:potree": ("potree loop_nodes_hqs", "steady")}
+         "pcr_u64_min_flat": ("las loop_las", "orbit"),
+         "pcr_hqs_sums_flat": ("las loop_las_hqs", "orbit"),
+         "pcr_u64_min_flat:potree": ("potree loop_nodes", "steady"),
+         "pcr_hqs_sums_flat:potree": ("potree loop_nodes_hqs", "steady")}
 # the synthetic Potree scene's cameras (`tools/synth_potree.py`, 4096 m): the
 # steady camera of the reference's 1B-point run (experiments/r5_potree_1b.py),
 # an overview, and a close-up of the (700, 700) corner on the terrain, which
@@ -400,10 +418,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def hqs_rows(pid, dep, pay, fb_depth, size: int):
-    """The one PyTorch call that computes B4's sums is `index_add_` of the
-    accepted entries' (r, g, b, 1) rows into a (size + 1, 4) plane, the
-    rest into row `size`: -> (index, rows)."""
+def hqs_accepted(pid, dep, fb_depth, size: int):
+    """B4's accept test: the (n,) int64 pixel of each entry it adds,
+    `size` where it adds nothing."""
     import torch
 
     from pcrhpg24_tpu_torch.u32 import widen
@@ -412,11 +429,24 @@ def hqs_rows(pid, dep, pay, fb_depth, size: int):
     w = dep.reshape(-1).view(torch.float32)
     old = fb_depth.view(torch.float32)[torch.clamp(q, max=size - 1)]
     tol = torch.tensor(1.01, dtype=torch.float32, device=q.device)
-    idx = torch.where((q < size) & (w <= old * tol), q, torch.full_like(q, size))
-    y = widen(pay.reshape(-1))
+    return torch.where((q < size) & (w <= old * tol), q, torch.full_like(q, size))
+
+
+def hqs_rows(pid, dep, pay, fb_depth, size: int):
+    """The one PyTorch call that computes B4's sums is `index_add_` of the
+    accepted entries' (r, g, b, 1) rows into a (size, 4) plane: -> (index,
+    rows) of the accepted entries only.  The accept test and the drop are
+    left out of its time."""
+    import torch
+
+    from pcrhpg24_tpu_torch.u32 import widen
+
+    q = hqs_accepted(pid, dep, fb_depth, size)
+    ok = q < size
+    y = widen(pay.reshape(-1))[ok]
     vals = torch.stack([y & 255, (y >> 8) & 255, (y >> 16) & 255, torch.ones_like(y)],
                        1).to(torch.int32)
-    return idx, vals
+    return q[ok], vals
 
 
 LAZ_POINTS = 65536  # the multi-file scene's `.laz`: the codec is pure Python
@@ -525,20 +555,43 @@ def same_planes(got, want, what: str) -> int:
     return err
 
 
-def atomic_groups(q, size: int):
-    """q: (n,) int64 pixel of each entry of a stream, `size` or more where
-    it lands nothing -> (landing entries, (warp, pixel) groups of B3's and
-    B4's tile columns (32 points of one chain), groups of flat 32-entry
-    warps): the atomics those kernels do, against those of a warp over
-    32 consecutive entries."""
+def atomic_groups(qs, size: int):
+    """qs: for each part of a stream, the (n,) int64 pixel of each entry,
+    `size` or more where it lands nothing -> (landing entries, (warp,
+    pixel) groups of the chain tiles' columns (32 points of one chain: B3's
+    and B4's chain layout), groups of flat 32-entry warps (a warp of their
+    flat layout), landing entries whose next entry lands on the same
+    pixel): the atomic sets of each layout if each warp combined its lanes
+    of one pixel, and the pairs that a drop of keys beaten by the next lane
+    could merge."""
     import torch
 
-    ok = q < size
-    e = torch.arange(q.numel(), device=q.device)[ok]
-    q = q[ok]
-    tiles = (e // (32 * 1024)) * 1024 + e % 1024  # (32-row band, column)
-    return (int(ok.sum()), torch.unique(tiles * (size + 1) + q).numel(),
-            torch.unique((e // 32) * (size + 1) + q).numel())
+    total = [0, 0, 0, 0]
+    for q in qs:
+        ok = q < size
+        e = torch.arange(q.numel(), device=q.device)[ok]
+        q = q[ok]
+        tiles = (e // (32 * 1024)) * 1024 + e % 1024  # (32-row band, column)
+        pairs = int(((q[1:] == q[:-1]) & (e[1:] == e[:-1] + 1)).sum())
+        for k, v in enumerate((int(ok.sum()), torch.unique(tiles * (size + 1) + q).numel(),
+                               torch.unique((e // 32) * (size + 1) + q).numel(), pairs)):
+            total[k] += v
+    return tuple(total)
+
+
+def flat_groups(label: str, parts, colour, fb, size: int, card: str) -> None:
+    """Print `atomic_groups` of a frame's flat parts: B4's accepted entries
+    (`colour`, the parts with the colours as payload, against the depth
+    plane `fb`) and B3's landing entries (`parts`)."""
+    from pcrhpg24_tpu_torch.u32 import widen
+
+    for what, qs in (("B4: accepted entries", [hqs_accepted(*p[:2], fb, size) for p in colour]),
+                     ("B3: landing entries", [widen(p[0].reshape(-1)) for p in parts])):
+        n_q, tiled, flat, pairs = atomic_groups(qs, size)
+        print(f"[groups] {label} {what} {n_q:,} fall into {tiled:,} (warp, pixel) groups "
+              f"of 32-point chain-tile columns ({tiled / n_q:.4f} an entry), "
+              f"{flat:,} over flat 32-entry warps ({flat / n_q:.4f}); {pairs:,} "
+              f"entries land on their next entry's pixel ({pairs / n_q:.6f}) [{card}]")
 
 
 def view_args(method, renderer, view: dict, lod: float) -> dict:
@@ -617,11 +670,15 @@ def output_phase(paths: dict, results: dict) -> None:
                 launches = {s: k.launches for s, k in build.KERNELS.items()}
                 for s in must:
                     check(launches[s] > 0, f"{s} never launched ({label} {flag}, {name})")
-                # the overdraw frame counts entries in place of the resolve
+                # the overdraw frame counts entries in place of the resolve;
+                # the `.las` frame resolves in B3's flat layout
                 b3 = 0 if (flag == "overdraw" and method_name == "huffman_tpu") else frames
-                check(launches["pcr_u64_min"] == b3,
-                      f"pcr_u64_min launched {launches['pcr_u64_min']} times in {frames} "
-                      f"frames ({label} {flag}, {name}), not {b3}")
+                b3_sym = "pcr_u64_min_flat" if v == "las" else "pcr_u64_min"
+                for sym in ("pcr_u64_min", "pcr_u64_min_flat"):
+                    want = b3 if sym == b3_sym else 0
+                    check(launches[sym] == want,
+                          f"{sym} launched {launches[sym]} times in {frames} frames "
+                          f"({label} {flag}, {name}), not {want}")
                 method = Runtime.selected
                 if method_name in plain_frame:
                     fd, fp, img = plain_frame[method_name](
@@ -653,7 +710,7 @@ def output_phase(paths: dict, results: dict) -> None:
                 print(f"[output] {label} ({method_name}) {name} {' '.join(extra)}: "
                       f"{shown:,} pixels shown, image "
                       f"and last_fb ({planes}) bit-exact vs the all-plain frame (err {e})"
-                      f"{note}; launches { {s: launches[s] for s in (*must, 'pcr_u64_min')} }")
+                      f"{note}; launches { {s: launches[s] for s in (*must, b3_sym)} }")
                 method.las.unload()
                 del rr, method, got, img, fd, fp
                 Runtime.clear()
@@ -661,6 +718,30 @@ def output_phase(paths: dict, results: dict) -> None:
     for f in ("colorize_chunks", "show_num_points", "colorize_overdraw", "edl",
               "show_bounding_box"):
         setattr(Debug, f, False)
+
+
+def both_layouts(parts, colour, size: int, errs: dict, what: str):
+    """B3 on `parts` and B4 on `colour` (the same parts with the colours
+    as payload) in the flat layout, as their callers launch them, and in
+    the chain layout, each against its plain version; -> B3's depth plane
+    (B4's prepass), contiguous."""
+    from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
+    from pcrhpg24_tpu_torch.render.raster import u64_min_planes, u64_min_planes_plain
+
+    want = u64_min_planes_plain(parts, size)
+    fb = want[0].contiguous()
+    want4 = hqs_sums_plain(colour, fb, size)
+    for layout, suffix in (("flat", "_flat"), ("chain", "")):
+        errs["pcr_u64_min" + suffix] = max(errs["pcr_u64_min" + suffix], same_planes(
+            u64_min_planes(parts, size, layout=layout), want,
+            f"B3 in the {layout} layout on {what}"))
+        errs["pcr_hqs_sums" + suffix] = max(errs["pcr_hqs_sums" + suffix], same_planes(
+            hqs_sums(colour, fb, size, layout=layout), want4,
+            f"B4 in the {layout} layout on {what}"))
+    print(f"[gate] B3 and B4 in the flat and the chain layout bit-exact vs their plain "
+          f"versions on {what} ({sum(p[0].numel() for p in parts):,} entries in "
+          f"{len(parts)} part(s))")
+    return fb
 
 
 def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) -> dict:
@@ -678,9 +759,8 @@ def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) 
     from pcrhpg24_tpu_torch import app
     from pcrhpg24_tpu_torch.engine.method import Runtime
     from pcrhpg24_tpu_torch.kernels import build
-    from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
     from pcrhpg24_tpu_torch.render.methods import basic, compute_2021, loop_las
-    from pcrhpg24_tpu_torch.render.raster import BACKGROUND, u64_min_planes, u64_min_planes_plain
+    from pcrhpg24_tpu_torch.render.raster import BACKGROUND
     from pcrhpg24_tpu_torch.utils.devtime import device_ms
 
     frames = WARMUP + FRAMES
@@ -690,7 +770,7 @@ def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) 
                 compute_2021.Compute2021: compute_2021.compute2021_parts}
     shapes = {}
     runs = [(las_path, name, must, view) for name, must in LAS_METHODS for view in TPC_VIEWS]
-    runs.append((",".join(multi), "basic", ("pcr_u64_min",), "orbit"))
+    runs.append((",".join(multi), "basic", ("pcr_u64_min_flat",), "orbit"))
     for path, method_name, must, name in runs:
         label = f"las {method_name}" if path == las_path else f"multi-file {method_name}"
         for k in build.KERNELS.values():
@@ -725,14 +805,8 @@ def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) 
         if (method_name, name) == ("loop_las_hqs", "orbit") and path == las_path:
             parts = parts_fn(**args)
             colour = loop_las.colour_parts(parts, args["dev"]["rgba"])
-            planes = u64_min_planes(parts, size)
-            e3 = same_planes(planes, u64_min_planes_plain(parts, size),
-                             "B3 on the loop_las orbit frame's parts")
-            fb = planes[0].contiguous()
-            e4 = same_planes(hqs_sums(colour, fb, size), hqs_sums_plain(colour, fb, size),
-                             "B4 on the loop_las_hqs orbit frame's parts")
-            errs["pcr_u64_min"] = max(errs["pcr_u64_min"], e3)
-            errs["pcr_hqs_sums"] = max(errs["pcr_hqs_sums"], e4)
+            fb = both_layouts(parts, colour, size, errs, "the loop_las orbit frame's parts")
+            flat_groups("loop_las_hqs orbit", parts, colour, fb, size, card)
             shapes = dict(parts=parts, colour=colour, fb=fb)
         print(f"[main] {label} {name}: {shown:,} pixels shown, image and last_fb bit-exact "
               f"vs the all-plain frame (err {e}); {points:,} points projected; launches "
@@ -785,10 +859,8 @@ def potree_phase(path: str, budget, results: dict, errs: dict, card: str) -> dic
     from pcrhpg24_tpu_torch.engine.potree_resource import PotreeData
     from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
     from pcrhpg24_tpu_torch.kernels import build
-    from pcrhpg24_tpu_torch.render.hqs import hqs_sums, hqs_sums_plain
     from pcrhpg24_tpu_torch.render.methods.loop_nodes import CHUNK_PTS, node_parts
-    from pcrhpg24_tpu_torch.render.raster import (BACKGROUND, u64_min_planes,
-                                                  u64_min_planes_plain)
+    from pcrhpg24_tpu_torch.render.raster import BACKGROUND
 
     frames = WARMUP + FRAMES
     size = W * H
@@ -797,7 +869,8 @@ def potree_phase(path: str, budget, results: dict, errs: dict, card: str) -> dic
     colour, hqs = app.build_methods(r, path)
     data = PotreeData.create(path, DEVICE, budget)  # the residency cap: no app flag
     colour.potree = hqs.potree = data
-    must = {colour.name: ("pcr_u64_min",), hqs.name: ("pcr_u64_min", "pcr_hqs_sums")}
+    must = {colour.name: ("pcr_u64_min_flat",),
+            hqs.name: ("pcr_u64_min_flat", "pcr_hqs_sums_flat")}
 
     def run(m, n: int, label: str, view: str) -> dict:
         for k in build.KERNELS.values():
@@ -880,16 +953,11 @@ def potree_phase(path: str, budget, results: dict, errs: dict, card: str) -> dic
                       f"frames, no other kernel [{card}]")
             if (name, density) == ("steady", 0.0):
                 parts = list(node_parts(**colour.frame_args(r, tables)))
-                planes = u64_min_planes(parts, size)
-                errs["pcr_u64_min"] = max(errs["pcr_u64_min"], same_planes(
-                    planes, u64_min_planes_plain(parts, size),
-                    "B3 on the potree steady frame's parts"))
                 rgba = data.dev["rgba"]
                 cparts = [(pid, dep, rgba[idx]) for pid, dep, idx in parts]
-                fb = planes[0].contiguous()
-                errs["pcr_hqs_sums"] = max(errs["pcr_hqs_sums"], same_planes(
-                    hqs_sums(cparts, fb, size), hqs_sums_plain(cparts, fb, size),
-                    "B4 on the potree steady frame's parts"))
+                fb = both_layouts(parts, cparts, size, errs,
+                                  "the potree steady frame's parts")
+                flat_groups("potree loop_nodes_hqs steady", parts, cparts, fb, size, card)
                 shapes = dict(parts=parts, colour=cparts, fb=fb)
     Debug.node_budget = 0.0
     print(f"[scene] potree: peak {torch.cuda.max_memory_allocated():,} B allocated over the "
@@ -924,6 +992,9 @@ def main(argv=None) -> int:
     ap.add_argument("--potree-budget", type=float, default=None,
                     help="the Potree scene's residency cap in points (3e8 in the "
                          "reference's 1B-point run; default: all resident)")
+    ap.add_argument("--flat-variants", action="store_true",
+                    help="also time the variants of B3's and B4's flat design "
+                         "(tools/flat_variants.py) on the .las and Potree parts")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -968,7 +1039,7 @@ def main(argv=None) -> int:
         N_U, N_V, Parametric, render_parametric, surface_points)
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
     from pcrhpg24_tpu_torch.render.raster import (
-        BACKGROUND, U64_MIN, edl_shade, image_to_rgb8, key_plane, project_points, resolve,
+        BACKGROUND, U64_MIN, U64_MIN_FLAT, edl_shade, image_to_rgb8, key_plane, project_points, resolve,
         sort_by_pid, swizzle_dims, u64_min_planes, u64_min_planes_plain, unswizzle_plane)
     from pcrhpg24_tpu_torch.render import raster
     from pcrhpg24_tpu_torch.render.overlay import draw_bounding_boxes
@@ -1319,10 +1390,10 @@ def main(argv=None) -> int:
         check(torch.equal(g.cpu(), p), "B4 on the card != CPU plain")
     print("[gate] orbit: B4 planes of one chunk from the card equal the plain "
           "version run on the CPU")
-    for what, q in (("B4, HQS chunk: accepted entries", hqs_rows(*parts[0], fb_d, size)[0]),
+    for what, q in (("B4, HQS chunk: accepted entries", hqs_accepted(*parts[0][:2], fb_d, size)),
                     ("B3, colour chunk: live entries", widen(cparts[0][0].reshape(-1))),
                     ("B3, HQS chunk: live entries", widen(parts[0][0].reshape(-1)))):
-        n_q, tiled, flat = atomic_groups(q, size)
+        n_q, tiled, flat, _pairs = atomic_groups([q], size)
         print(f"[gate] orbit {what} {n_q:,} fall into {tiled:,} (warp, pixel) groups "
               f"of 32-point chain columns ({tiled / n_q:.3f} atomic sets per entry), "
               f"{flat:,} over flat 32-entry warps ({flat / n_q:.3f})")
@@ -1443,6 +1514,38 @@ def main(argv=None) -> int:
     print(f"[gate] B3 on {many:,} entries of one pixel, depths falling: bit-exact vs "
           f"u64_min_planes_plain")
     del cp, cd, cy, cparts, got, want, one, falling, part
+
+    # B3 and B4 in both layouts on flat crafted streams (`crafted.flat_streams`):
+    # one pixel over 2**24 + 1 entries, runs of one pixel along consecutive
+    # entries, random pixels; 4M entries less 333, in 4 and in 70 uneven parts
+    # (two launches) none a multiple of the flat tile's 512 entries, both orders
+    for kind in crafted.FLAT_KINDS:
+        n_f = many if kind == "one_pixel" else 4096 * 1024 - 333
+        fpid, fdep, fpay, fcol, ffb = (from_u32(x).to(DEVICE) for x in
+                                       crafted.flat_streams(kind, n_f, size, seed=13))
+        for nparts in (4, 70):
+            cuts = crafted.flat_cuts(n_f, nparts, seed=nparts)
+            b3p = [(fpid[a:b], fdep[a:b], fpay[a:b]) for a, b in zip(cuts, cuts[1:])]
+            b4p = [(fpid[a:b], fdep[a:b], fcol[a:b]) for a, b in zip(cuts, cuts[1:])]
+            want = u64_min_planes_plain(b3p, size)
+            want4 = hqs_sums_plain(b4p, ffb, size)
+            for layout, suffix in (("flat", "_flat"), ("chain", "")):
+                for o3, o4 in ((b3p, b4p), (b3p[::-1], b4p[::-1])):
+                    errs["pcr_u64_min" + suffix] = max(errs["pcr_u64_min" + suffix], same_planes(
+                        u64_min_planes(o3, size, layout=layout), want,
+                        f"B3 ({layout}) != plain on flat crafted {kind} ({nparts} parts)"))
+                    errs["pcr_hqs_sums" + suffix] = max(errs["pcr_hqs_sums" + suffix], same_planes(
+                        hqs_sums(o4, ffb, size, layout=layout), want4,
+                        f"B4 ({layout}) != plain on flat crafted {kind} ({nparts} parts)"))
+        if kind == "one_pixel":
+            q = int(fpid[0])
+            check(int(widen(want4[0])[q]) == 255 * many % 2**32 and int(want[1][q]) == 0,
+                  "flat crafted one_pixel: B4's r sum did not wrap, or B3's tie went wrong")
+        print(f"[gate] flat crafted stream {kind!r} ({n_f:,} entries, "
+              f"{int((widen(fpid) < size).sum()):,} landing, "
+              f"{int(widen(want4[3]).sum()):,} accepted): B3 and B4 in the flat and the chain "
+              f"layout bit-exact vs their plain versions in 4 and 70 parts, both orders")
+    del fpid, fdep, fpay, fcol, ffb, b3p, b4p, want, want4
 
     # B3 and B4 on a crafted Potree part (`crafted.potree_part`): many nodes,
     # each a run of nearby pixels in random order, culled nodes and budget
@@ -1871,19 +1974,19 @@ def main(argv=None) -> int:
     idx8, keys8, plane8 = amin_rows(*s3, size)
     idx4, vals4 = hqs_rows(*hparts[0], hfb, size)
     idx9, vals9 = hqs_rows(*hs, hfb, size)
-    plane4 = torch.zeros((size + 1, 4), dtype=torch.int32, device=DEVICE)
+    plane4 = torch.zeros((size, 4), dtype=torch.int32, device=DEVICE)
     lparts, lcolour, lfb = las_shapes["parts"], las_shapes["colour"], las_shapes["fb"]
     idx3l, keys3l, plane3l = amin_rows(*(torch.cat([p[k].reshape(-1) for p in lparts])
                                          for k in range(3)), psize)
     idx4l, vals4l = hqs_rows(*(torch.cat([p[k].reshape(-1) for p in lcolour])
                                for k in range(3)), lfb, psize)
-    plane4l = torch.zeros((psize + 1, 4), dtype=torch.int32, device=DEVICE)
+    plane4l = torch.zeros((psize, 4), dtype=torch.int32, device=DEVICE)
     pparts, pcolour, pfb = (potree_shapes[k] for k in ("parts", "colour", "fb"))
     idx3p, keys3p, plane3p = amin_rows(*(torch.cat([p[k].reshape(-1) for p in pparts])
                                          for k in range(3)), psize)
     idx4p, vals4p = hqs_rows(*(torch.cat([p[k].reshape(-1) for p in pcolour])
                                for k in range(3)), pfb, psize)
-    plane4p = torch.zeros((psize + 1, 4), dtype=torch.int32, device=DEVICE)
+    plane4p = torch.zeros((psize, 4), dtype=torch.int32, device=DEVICE)
     timed = {
         "pcr_decode_fixed": (lambda: decode_fixed_batches(*dargs, points=dpts),
                              lambda: decode_fixed_plain(*dargs, points=dpts), None),
@@ -1910,19 +2013,19 @@ def main(argv=None) -> int:
         "pcr_hqs_sums": (lambda: hqs_sums(hparts, hfb, size),
                          lambda: hqs_sums_plain(hparts, hfb, size),
                          lambda: plane4.index_add_(0, idx4, vals4)),
-        "pcr_u64_min:las": (lambda: u64_min_planes(lparts, psize),
-                            lambda: u64_min_planes_plain(lparts, psize),
-                            lambda: plane3l.scatter_reduce_(0, idx3l, keys3l, reduce="amin")),
-        "pcr_hqs_sums:las": (lambda: hqs_sums(lcolour, lfb, psize),
-                             lambda: hqs_sums_plain(lcolour, lfb, psize),
-                             lambda: plane4l.index_add_(0, idx4l, vals4l)),
-        "pcr_u64_min:potree": (lambda: u64_min_planes(pparts, psize),
-                               lambda: u64_min_planes_plain(pparts, psize),
-                               lambda: plane3p.scatter_reduce_(0, idx3p, keys3p,
-                                                               reduce="amin")),
-        "pcr_hqs_sums:potree": (lambda: hqs_sums(pcolour, pfb, psize),
-                                lambda: hqs_sums_plain(pcolour, pfb, psize),
-                                lambda: plane4p.index_add_(0, idx4p, vals4p)),
+        "pcr_u64_min_flat": (lambda: u64_min_planes(lparts, psize, layout="flat"),
+                             lambda: u64_min_planes_plain(lparts, psize),
+                             lambda: plane3l.scatter_reduce_(0, idx3l, keys3l, reduce="amin")),
+        "pcr_hqs_sums_flat": (lambda: hqs_sums(lcolour, lfb, psize, layout="flat"),
+                              lambda: hqs_sums_plain(lcolour, lfb, psize),
+                              lambda: plane4l.index_add_(0, idx4l, vals4l)),
+        "pcr_u64_min_flat:potree": (lambda: u64_min_planes(pparts, psize, layout="flat"),
+                                    lambda: u64_min_planes_plain(pparts, psize),
+                                    lambda: plane3p.scatter_reduce_(0, idx3p, keys3p,
+                                                                    reduce="amin")),
+        "pcr_hqs_sums_flat:potree": (lambda: hqs_sums(pcolour, pfb, psize, layout="flat"),
+                                     lambda: hqs_sums_plain(pcolour, pfb, psize),
+                                     lambda: plane4p.index_add_(0, idx4p, vals4p)),
         "pcr_decode_native": (lambda: decode_native_batches(*native_in, points=64),
                               lambda: decode_native_plain(*native_in, points=64), None),
         "pcr_merge_nk1": (lambda: dense_from_sorted_nk1(*sp, psize),
@@ -1959,11 +2062,11 @@ def main(argv=None) -> int:
         "pcr_u64_min:frame": sum(nbytes(*p) for p in fparts["colour"]) + 8 * size,
         "pcr_u64_min:hqs": sum(nbytes(*p) for p in fparts["hqs"]) + 8 * size,
         "pcr_hqs_sums": nbytes(*hparts[0], hfb) + 16 * size,
-        "pcr_u64_min:las": sum(nbytes(*p) for p in lparts) + 8 * psize,
-        "pcr_hqs_sums:las": sum(nbytes(*p) for p in lcolour) + nbytes(lfb) + 16 * psize,
-        "pcr_u64_min:potree": sum(nbytes(*p) for p in pparts) + 8 * psize,
-        "pcr_hqs_sums:potree": (sum(nbytes(*p) for p in pcolour) + nbytes(pfb)
-                                + 16 * psize),
+        "pcr_u64_min_flat": sum(nbytes(*p) for p in lparts) + 8 * psize,
+        "pcr_hqs_sums_flat": sum(nbytes(*p) for p in lcolour) + nbytes(lfb) + 16 * psize,
+        "pcr_u64_min_flat:potree": sum(nbytes(*p) for p in pparts) + 8 * psize,
+        "pcr_hqs_sums_flat:potree": (sum(nbytes(*p) for p in pcolour) + nbytes(pfb)
+                                     + 16 * psize),
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
                               + CHUNK * 64 * 3 * 1024 * 4),
         "pcr_merge_nk1": nbytes(*sp) + 8 * psize,
@@ -1984,15 +2087,16 @@ def main(argv=None) -> int:
         "pcr_hqs_sorted": f"one orbit HQS chunk sorted by pid, {hn:,} entries",
         "pcr_tile_sort3": f"{tiles[0].shape[0]:,} tiles of the orbit HQS chunk",
         "pcr_hqs_sums": f"one orbit HQS chunk, {hn:,} entries",
-        "pcr_u64_min:las": f"the loop_las orbit frame's {len(lparts)} part(s), "
-                           f"{sum(p[0].numel() for p in lparts):,} entries into {psize:,} pixels",
-        "pcr_hqs_sums:las": f"the loop_las_hqs orbit frame's {len(lcolour)} part(s), "
-                            f"{sum(p[0].numel() for p in lcolour):,} entries",
-        "pcr_u64_min:potree": f"the loop_nodes steady frame's {len(pparts)} part(s), "
-                              f"{sum(p[0].numel() for p in pparts):,} entries into "
-                              f"{psize:,} pixels",
-        "pcr_hqs_sums:potree": f"the loop_nodes_hqs steady frame's {len(pcolour)} part(s), "
-                               f"{sum(p[0].numel() for p in pcolour):,} entries",
+        "pcr_u64_min_flat": f"the loop_las orbit frame's {len(lparts)} part(s), "
+                            f"{sum(p[0].numel() for p in lparts):,} entries into {psize:,} "
+                            f"pixels",
+        "pcr_hqs_sums_flat": f"the loop_las_hqs orbit frame's {len(lcolour)} part(s), "
+                             f"{sum(p[0].numel() for p in lcolour):,} entries",
+        "pcr_u64_min_flat:potree": f"the loop_nodes steady frame's {len(pparts)} part(s), "
+                                   f"{sum(p[0].numel() for p in pparts):,} entries into "
+                                   f"{psize:,} pixels",
+        "pcr_hqs_sums_flat:potree": f"the loop_nodes_hqs steady frame's {len(pcolour)} "
+                                    f"part(s), {sum(p[0].numel() for p in pcolour):,} entries",
         "pcr_decode_huffman": f"the .huffman scene's first {CHUNK} batches at points "
                               f"{dpts}",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
@@ -2015,10 +2119,11 @@ def main(argv=None) -> int:
         "pcr_u64_min": b3_alone([stream]),
         "pcr_u64_min:frame": b3_alone(fparts["colour"]),
         "pcr_u64_min:hqs": b3_alone(fparts["hqs"]),
-        "pcr_u64_min:las": lambda: [U64_MIN.launch(*g, plane_alone.data_ptr(), psize)
-                                    for g in build.part_groups(lparts)],
-        "pcr_u64_min:potree": lambda: [U64_MIN.launch(*g, plane_alone.data_ptr(), psize)
-                                       for g in build.part_groups(pparts)],
+        "pcr_u64_min_flat": lambda: [U64_MIN_FLAT.launch(*g, plane_alone.data_ptr(), psize)
+                                     for g in build.part_groups(lparts)],
+        "pcr_u64_min_flat:potree": lambda: [U64_MIN_FLAT.launch(*g, plane_alone.data_ptr(),
+                                                                psize)
+                                            for g in build.part_groups(pparts)],
         "pcr_merge_nk1": lambda: MERGE_NK1.launch(
             sp[0].data_ptr(), sp[1].data_ptr(), sp[2].data_ptr(), plane_alone.data_ptr(),
             sp[0].numel(), psize),
@@ -2027,6 +2132,17 @@ def main(argv=None) -> int:
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
     bound_ops = {s: 32 * n for s in ("pcr_project", "pcr_project:hqs", "pcr_project:payload",
                                      *(f"pcr_project:{fmt}" for fmt in COLOR_FMTS))}
+    # a model of the L2 sectors of the flat rows' random accesses, from the
+    # inputs (no counter is read): a 32 B sector for each landing entry's
+    # plane word (B3) or depth word (B4), and for each accepted entry's
+    # 16 B row of sums (B4's four atomics, one request)
+    landing = {"las": int((idx3l < psize).sum()), "potree": int((idx3p < psize).sum())}
+    accepted = {"las": idx4l.numel(), "potree": idx4p.numel()}
+    l2_model = {"pcr_u64_min_flat": 32 * landing["las"],
+                "pcr_u64_min_flat:potree": 32 * landing["potree"],
+                "pcr_hqs_sums_flat": 32 * (landing["las"] + accepted["las"]),
+                "pcr_hqs_sums_flat:potree": 32 * (landing["potree"] + accepted["potree"])}
+    device_of = {}
     kernels = []
     for s, (kern, plain, library) in timed.items():
         k_ms = time_ms(kern, KERNEL_REPS)
@@ -2049,6 +2165,7 @@ def main(argv=None) -> int:
             kernel_device_ms=None if k_alone is None else round(k_alone, 4),
             plain_ms=round(p_ms, 4), bound_ms=round(bound_ms, 4), bound_by=bound_by,
             library_ms=None if lib_ms is None else round(lib_ms, 4)))
+        device_of[s] = k_dev
         at = timed_at.get(s, f"one orbit chunk, {n:,} entries")
         reach = (f"{results[owner]['launches'][sym]} launches in {owner[0]} {owner[1]}"
                  if owner else "reached by no method of the reference: 0 launches")
@@ -2058,6 +2175,46 @@ def main(argv=None) -> int:
               f"{kern_alone}) vs "
               f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{bound_bytes[s]:,} B), library {lib} ({at}); {reach} [{card}]")
+        if s in l2_model:
+            print(f"[l2 model] {KERNEL_INFO[s][0]}: {l2_model[s]:,} B of 32 B L2 sectors in "
+                  f"random accesses, modelled from the inputs (not measured); DRAM bound "
+                  f"{t_bytes:.4f} ms ({bound_bytes[s]:,} B at {HBM_BYTES_PER_S / 1e12:.2f} "
+                  f"TB/s) [{card}]")
+    # the chain layout's kernels, which the `.tpc` and `.huffman` frames
+    # launch (and the `.las` and Potree frames did before the flat one), on
+    # the same flat parts
+    for s, fn in (("pcr_u64_min_flat", lambda: u64_min_planes(lparts, psize)),
+                  ("pcr_hqs_sums_flat", lambda: hqs_sums(lcolour, lfb, psize)),
+                  ("pcr_u64_min_flat:potree", lambda: u64_min_planes(pparts, psize)),
+                  ("pcr_hqs_sums_flat:potree", lambda: hqs_sums(pcolour, pfb, psize))):
+        chain_ms = time_ms(fn, KERNEL_REPS, spin=True)
+        print(f"[time] {KERNEL_INFO[s][0]}: the chain layout's kernel on the same parts "
+              f"{chain_ms:.4f} ms device, the flat layout's {device_of[s]:.4f} "
+              f"({chain_ms / device_of[s]:.2f}x) [{card}]")
+    # and the flat layout's kernels on the chain rows' parts: held to the
+    # chain kernels' planes (sums and minima do not depend on order), timed
+    for s, chain, flat in (
+            ("pcr_u64_min", lambda: u64_min_planes([stream], size),
+             lambda: u64_min_planes([stream], size, layout="flat")),
+            *((f"pcr_u64_min:{row}", lambda fp=fparts[mode]: u64_min_planes(fp, size),
+               lambda fp=fparts[mode]: u64_min_planes(fp, size, layout="flat"))
+              for row, mode in (("frame", "colour"), ("hqs", "hqs"))),
+            ("pcr_hqs_sums", lambda: hqs_sums(hparts, hfb, size),
+             lambda: hqs_sums(hparts, hfb, size, layout="flat"))):
+        e = max(max_abs_err(g, w) for g, w in zip(flat(), chain()))
+        check(e == 0, f"{s}: the flat layout's kernel on the chain parts != the chain "
+                      f"kernel's (max err {e})")
+        flat_ms = time_ms(flat, KERNEL_REPS, spin=True)
+        print(f"[time] {KERNEL_INFO[s][0]}: the flat layout's kernel on the same chain parts "
+              f"{flat_ms:.4f} ms device, bit-exact; the chain layout's {device_of[s]:.4f} "
+              f"({flat_ms / device_of[s]:.2f}x) [{card}]")
+    if args.flat_variants:
+        from pcrhpg24_tpu_torch.tools import flat_variants
+
+        for label, shapes_of in (("loop_las orbit", (lparts, lcolour, lfb)),
+                                 ("Potree steady", (pparts, pcolour, pfb))):
+            flat_variants.run(label, *shapes_of, psize,
+                              lambda fn, **kw: time_ms(fn, KERNEL_REPS, **kw), card)
     # B12's resources, and its chunk's blocks spread evenly over the SMs
     res = kernel_resources()
     sms = torch.cuda.get_device_properties(0).multi_processor_count

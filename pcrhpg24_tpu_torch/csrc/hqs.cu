@@ -43,6 +43,25 @@
 //    value in the kernel's parameters (up to 64 parts a launch), with no
 //    host-to-device copy.  The stream is read with evict-first loads so
 //    the depth plane and the sums keep the L2.
+// All of the above is the chain layout (`tiles::kChain`), the `.tpc` and
+// `.huffman` streams.  The `.las` and Potree parts are flat (one entry a
+// point, in file or node order: `tiles::kFlat`, a template value of the
+// kernel).  There the transpose gives a lane entries 1024 apart, and even
+// 32 consecutive entries seldom share a pixel (`chip_smoke.py`'s atomic
+// groups: about one group per accepted entry on both), so each match
+// group is one lane and pays for the match, two reductions and four
+// atomics, each of the four a warp instruction whose 32 lanes hit 32
+// rows.  The flat design:
+//  * a warp takes 512 consecutive entries straight into registers
+//    (`tiles::load_flat`, 8 columns a pass, no shared memory) and
+//    gathers each pass's depth-plane words first;
+//  * no match: per column, lanes 4k..4k+3 add the (r, g, b, n) of the
+//    column's entry 8j + k, in four rounds j (a round none of whose
+//    eight entries is accepted is skipped).  One instruction's atomics
+//    then fall on 8 rows of 16 bytes, 4 lanes a row, and the memory
+//    system takes a row's four as one request, as it does for
+//    `index_add_` of (size, 4) rows: a quarter of the requests of four
+//    atomics a lane.
 //
 // B9 replaces the Pallas TPU kernel `_hqs_sum_kernel`
 // (pcrhpg24_tpu/render/pallas_hqs.py:71, reached through
@@ -72,43 +91,98 @@ using tiles::Parts;
 constexpr int kWarps = 8;         // B4 warps per block, one tile each
 constexpr int kSmemBytes = kWarps * 3 * kTileWords * 4;  // 52,224 B
 
+template <int kLayout>
 __global__ void __launch_bounds__(kWarps * 32, 4)
 hqs_sums_kernel(const __grid_constant__ Parts parts,
                 const uint32_t* __restrict__ fb_depth,
                 unsigned int* __restrict__ acc,  // (size, 4): r, g, b, n
                 uint32_t size) {
-  extern __shared__ uint32_t tile[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWarps + warp;
   if (t >= parts.tile0[parts.count]) return;  // the whole warp; no barrier
-  uint32_t* sp = tile + warp * 3 * kTileWords;
-  uint32_t* sd = sp + kTileWords;
-  uint32_t* sy = sd + kTileWords;
-  tiles::load_tile(parts, t, lane, sp, sd, sy);
-  // lane l holds point l of the band in each of the tile's 16 chains
-  uint32_t q[kCols], old[kCols];
+  if constexpr (kLayout == tiles::kFlat) {
+    // lane l holds entries l, 32 + l, ... of the tile's 512, kFlatCols at
+    // a time
+    const int f = lane & 3;  // the field this lane adds: r, g, b or n
+#pragma unroll 1
+    for (int c0 = 0; c0 < kCols; c0 += tiles::kFlatCols) {
+      uint32_t q[tiles::kFlatCols], d[tiles::kFlatCols], y[tiles::kFlatCols];
+      uint32_t old[tiles::kFlatCols];
+      tiles::load_flat(parts, t, lane, c0, q, d, y);
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    q[c] = sp[lane * kPitch + c];
-    old[c] = q[c] < size ? __ldg(fb_depth + q[c]) : 0u;
-  }
+      for (int c = 0; c < tiles::kFlatCols; ++c)
+        old[c] = q[c] < size ? __ldg(fb_depth + q[c]) : 0u;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const unsigned grp = __match_any_sync(kFull, q[c]);
-    const float w = __uint_as_float(sd[lane * kPitch + c]);
-    const bool ok = q[c] < size && w <= __fmul_rn(__uint_as_float(old[c]), 1.01f);
-    const uint32_t y = sy[lane * kPitch + c];
-    const uint32_t rg = __reduce_add_sync(grp, ok ? (y & 255u) | (((y >> 8) & 255u) << 16) : 0u);
-    const uint32_t bn = __reduce_add_sync(grp, ok ? ((y >> 16) & 255u) | (1u << 16) : 0u);
-    if (lane == __ffs(grp) - 1 && bn != 0u) {  // bn != 0: a live, accepted group
-      unsigned int* a = acc + 4ull * q[c];
-      atomicAdd(a + 0, rg & 0xffffu);
-      atomicAdd(a + 1, rg >> 16);
-      atomicAdd(a + 2, bn & 0xffffu);
-      atomicAdd(a + 3, bn >> 16);
+      for (int c = 0; c < tiles::kFlatCols; ++c) {
+        const bool ok =
+            q[c] < size && __uint_as_float(d[c]) <= __fmul_rn(__uint_as_float(old[c]), 1.01f);
+        const unsigned live = __ballot_sync(kFull, ok);
+        const uint32_t qa = ok ? q[c] : kFull;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // lanes 4k..4k+3: entry 8j + k's four fields
+          if (((live >> (8 * j)) & 255u) == 0u) continue;  // the whole warp
+          const int src = 8 * j + (lane >> 2);
+          const uint32_t qs = __shfl_sync(kFull, qa, src);
+          const uint32_t ys = __shfl_sync(kFull, y[c], src);
+          if (qs != kFull) atomicAdd(acc + 4ull * qs + f, f == 3 ? 1u : (ys >> (8 * f)) & 255u);
+        }
+      }
+    }
+  } else {
+    extern __shared__ uint32_t tile[];
+    uint32_t* sp = tile + warp * 3 * kTileWords;
+    uint32_t* sd = sp + kTileWords;
+    uint32_t* sy = sd + kTileWords;
+    tiles::load_tile(parts, t, lane, sp, sd, sy);
+    // lane l holds point l of the band in each of the tile's 16 chains
+    uint32_t q[kCols], old[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      q[c] = sp[lane * kPitch + c];
+      old[c] = q[c] < size ? __ldg(fb_depth + q[c]) : 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const unsigned grp = __match_any_sync(kFull, q[c]);
+      const float w = __uint_as_float(sd[lane * kPitch + c]);
+      const bool ok = q[c] < size && w <= __fmul_rn(__uint_as_float(old[c]), 1.01f);
+      const uint32_t y = sy[lane * kPitch + c];
+      const uint32_t rg = __reduce_add_sync(grp, ok ? (y & 255u) | (((y >> 8) & 255u) << 16) : 0u);
+      const uint32_t bn = __reduce_add_sync(grp, ok ? ((y >> 16) & 255u) | (1u << 16) : 0u);
+      if (lane == __ffs(grp) - 1 && bn != 0u) {  // bn != 0: a live, accepted group
+        unsigned int* a = acc + 4ull * q[c];
+        atomicAdd(a + 0, rg & 0xffffu);
+        atomicAdd(a + 1, rg >> 16);
+        atomicAdd(a + 2, bn & 0xffffu);
+        atomicAdd(a + 3, bn >> 16);
+      }
     }
   }
+}
+
+// One launch of B4 in kLayout over `count` (<= 64) parts.
+template <int kLayout>
+int launch_hqs_sums(const void* const* pid, const void* const* dep, const void* const* pay,
+                    const long long* n, int count, const void* fb_depth, void* acc,
+                    int size, void* stream) {
+  Parts parts;
+  if (!tiles::make_parts(parts, pid, dep, pay, n, count, kLayout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kLayout == tiles::kFlat ? 0 : kSmemBytes;
+  static bool attr_set = false;
+  if (!attr_set && smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hqs_sums_kernel<kLayout>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const int blocks = (parts.tile0[count] + kWarps - 1) / kWarps;
+  if (blocks == 0) return 0;
+  hqs_sums_kernel<kLayout><<<blocks, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      parts, static_cast<const uint32_t*>(fb_depth), static_cast<unsigned int*>(acc),
+      static_cast<uint32_t>(size));
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void hqs_sorted_kernel(const uint32_t* __restrict__ pid,
@@ -161,27 +235,21 @@ __global__ void hqs_sorted_kernel(const uint32_t* __restrict__ pid,
 
 // B4 over `count` (<= 64) parts: pid/dep/pay are host arrays of the parts'
 // device pointers, n of their entry counts; acc is the (size, 4) sums.
+// pcr_hqs_sums takes chain-layout parts, pcr_hqs_sums_flat flat ones.
 extern "C" int pcr_hqs_sums(const void* const* pid, const void* const* dep,
                             const void* const* pay, const long long* n,
                             int count, const void* fb_depth, void* acc,
                             int size, void* stream) {
-  Parts parts;
-  if (!tiles::make_parts(parts, pid, dep, pay, n, count))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hqs_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
-  const int blocks = (parts.tile0[count] + kWarps - 1) / kWarps;
-  if (blocks == 0) return 0;
-  hqs_sums_kernel<<<blocks, kWarps * 32, kSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      parts, static_cast<const uint32_t*>(fb_depth),
-      static_cast<unsigned int*>(acc), static_cast<uint32_t>(size));
-  return static_cast<int>(cudaGetLastError());
+  return launch_hqs_sums<tiles::kChain>(pid, dep, pay, n, count, fb_depth, acc, size,
+                                        stream);
+}
+
+extern "C" int pcr_hqs_sums_flat(const void* const* pid, const void* const* dep,
+                                 const void* const* pay, const long long* n,
+                                 int count, const void* fb_depth, void* acc,
+                                 int size, void* stream) {
+  return launch_hqs_sums<tiles::kFlat>(pid, dep, pay, n, count, fb_depth, acc, size,
+                                       stream);
 }
 
 extern "C" int pcr_hqs_sorted(const void* pid, const void* dep, const void* pay,

@@ -14,8 +14,11 @@ mod 2**32.  The reference gets the planes from pid-sorted rows through
 one-hot bf16 matmuls (`_hqs_matscatter_kernel`), because the TPU has no
 atomics; the CUDA kernel (`csrc/hqs.cu`) sums the unsorted stream of
 every part in one launch into one interleaved (size, 4) accumulator,
-the lanes of a warp that share a pixel combined before one set of
-`atomicAdd`s, and integer sums do not depend on the order.  `hqs_sums_from_sorted[_multi]` (B9, counterpart of
+and integer sums do not depend on the order.  In the chain layout (the
+`.tpc` and `.huffman` streams) the lanes of a warp that share a pixel
+are combined before one set of `atomicAdd`s; in the flat layout (the
+`.las` and Potree parts, one entry a point) four lanes add one entry's
+four sums into its 16-byte row.  `hqs_sums_from_sorted[_multi]` (B9, counterpart of
 `pallas_hqs.hqs_sums_from_sorted[_multi]`, a segmented suffix-sum over
 1024-entry windows on the TPU) take streams sorted by pid: the kernel
 (`csrc/hqs.cu`) sums each run segment of a warp first and does four
@@ -31,6 +34,9 @@ from ..u32 import widen
 from .raster import BACKGROUND
 
 HQS_SUMS = Kernel("pcr_hqs_sums", [P, P, P, P, I, P, P, I])
+HQS_SUMS_FLAT = Kernel("pcr_hqs_sums_flat", [P, P, P, P, I, P, P, I])
+# B4's kernel for each layout of a part, as `raster.U64_MIN_LAYOUTS`
+HQS_SUMS_LAYOUTS = {"chain": HQS_SUMS, "flat": HQS_SUMS_FLAT}
 HQS_SORTED = Kernel("pcr_hqs_sorted", [P, P, P, P, P, L, I])
 TOLERANCE = 1.01  # huffman_tpu_hqs.py:153, multiplied in f32
 
@@ -88,7 +94,7 @@ def _launch_sums(kernel: Kernel, parts, fb_depth, size: int):
     return tuple(planes[k] for k in range(4))
 
 
-def hqs_sums(parts, fb_depth, size: int, acc=None):
+def hqs_sums(parts, fb_depth, size: int, acc=None, layout: str = "chain"):
     """B4: the planes of `hqs_sums_plain`, one kernel launch for up to 64
     parts.
 
@@ -97,8 +103,11 @@ def hqs_sums(parts, fb_depth, size: int, acc=None):
     a (size,) int32 plane on the same card.  On the card the planes are
     strided views (stride 4) of one (size, 4) accumulator: `acc`, a
     running one that the parts are added into (a frame's parts in
-    groups), or a new one.
+    groups), or a new one.  `layout` ("chain" or "flat",
+    `HQS_SUMS_LAYOUTS`) picks the kernel for the parts' order; the sums
+    do not depend on it.
     """
+    kernel = HQS_SUMS_LAYOUTS[layout]  # a KeyError for any other layout
     if not fb_depth.is_cuda:
         return hqs_sums_plain(parts, fb_depth, size, acc)
     check_cuda("fb_depth", fb_depth, torch.int32, (size,))
@@ -106,7 +115,7 @@ def hqs_sums(parts, fb_depth, size: int, acc=None):
         acc = torch.zeros((size, 4), dtype=torch.int32, device=fb_depth.device)
     check_cuda("acc", acc, torch.int32, (size, 4))
     for group in part_groups(parts):
-        HQS_SUMS.launch(*group, fb_depth.data_ptr(), acc.data_ptr(), size)
+        kernel.launch(*group, fb_depth.data_ptr(), acc.data_ptr(), size)
     return tuple(acc[:, k] for k in range(4))
 
 

@@ -183,7 +183,9 @@ def resolve_parts(parts, rgba, width: int, height: int, hqs: bool = False,
     `resolve_indexed` of the payload plane over the whole `rgba` buffer.
     HQS hands B4 the same parts with each point's colour as the payload
     and the depth plane as its prepass, then divides (`resolve_hqs`).
-    `plain=True` runs the plain versions instead of B3 and B4."""
+    The parts are one entry a point in file order: both kernels take
+    them in their flat layout.  `plain=True` runs the plain versions
+    instead of B3 and B4."""
     size = width * height
     if not parts:
         empty = torch.full((size,), EMPTY, dtype=torch.int32, device=rgba.device)
@@ -192,11 +194,14 @@ def resolve_parts(parts, rgba, width: int, height: int, hqs: bool = False,
                     torch.full((height, width), BACKGROUND, dtype=torch.int32,
                                device=rgba.device))
         return empty, empty, resolve(empty, width, height)
-    fb_d, fb_p = (u64_min_planes_plain if plain else u64_min_planes)(parts, size)
+    fb_d, fb_p = (u64_min_planes_plain(parts, size) if plain
+                  else u64_min_planes(parts, size, layout="flat"))
     if not hqs:
         return fb_d, fb_p, resolve_indexed(fb_p, rgba, width, height)
     fb_d = fb_d.contiguous()  # B4 reads a contiguous plane
-    acc = (hqs_sums_plain if plain else hqs_sums)(colour_parts(parts, rgba), fb_d, size)
+    cparts = colour_parts(parts, rgba)
+    acc = (hqs_sums_plain(cparts, fb_d, size) if plain
+           else hqs_sums(cparts, fb_d, size, layout="flat"))
     return fb_d, acc[3], resolve_hqs(*acc, width, height)
 
 

@@ -156,12 +156,15 @@ def node_parts(dev, nid, nodes, transform, n_loaded: int, chunks, gather,
 def resolve_node_parts(parts, size: int, device, plain: bool = False):
     """B3 over an iterable of parts, a group at a time into one running
     plane -> (fb_depth, fb_payload, the parts if they made one group,
-    else None).  `plain=True` runs its plain version."""
+    else None).  The parts are one entry a point in node order: B3 takes
+    them in its flat layout.  `plain=True` runs its plain version."""
     plane = key_plane(size, device)
-    b3 = u64_min_planes_plain if plain else u64_min_planes
     kept, groups = None, 0
     for group in _grouped(parts):
-        b3(group, size, plane)
+        if plain:
+            u64_min_planes_plain(group, size, plane)
+        else:
+            u64_min_planes(group, size, plane, layout="flat")
         groups += 1
         kept = group if groups == 1 else None
     return (*key_views(plane), kept)
@@ -170,11 +173,15 @@ def resolve_node_parts(parts, size: int, device, plain: bool = False):
 def hqs_node_sums(parts, rgba, fb_depth, size: int, plain: bool = False):
     """B4 over an iterable of (pid, depth, index) parts, each point's
     colour as the payload, a group at a time into one accumulator ->
-    the (r, g, b, n) planes."""
+    the (r, g, b, n) planes; B4 in its flat layout, as B3 in
+    `resolve_node_parts`."""
     acc = torch.zeros((size, 4), dtype=torch.int32, device=fb_depth.device)
-    b4 = hqs_sums_plain if plain else hqs_sums
     for group in _grouped(parts):
-        b4([(pid, dep, rgba[idx]) for pid, dep, idx in group], fb_depth, size, acc)
+        cparts = [(pid, dep, rgba[idx]) for pid, dep, idx in group]
+        if plain:
+            hqs_sums_plain(cparts, fb_depth, size, acc)
+        else:
+            hqs_sums(cparts, fb_depth, size, acc, layout="flat")
     return tuple(acc[:, k] for k in range(4))
 
 

@@ -6,8 +6,10 @@ a frame's (pid, depth, payload) stream by sorting it and merging the
 sorted rows (`pallas_merge._merge_matscatter_kernel`), because the TPU
 has no atomics.  Here the CUDA kernel (`csrc/raster.cu`) resolves every
 part of a frame, unsorted, in one launch: a warp stages a tile of 32
-points of 16 chains, reads the dense plane's word for each entry's
-pixel in the swizzled id space, and does an `atomicMin` of the u64
+points of 16 chains (the chain layout of the `.tpc` and `.huffman`
+streams; the `.las` and Potree parts, one entry a point, take the flat
+layout: 512 consecutive entries), reads the dense plane's word for each
+entry's pixel, and does an `atomicMin` of the u64
 `(depth << 32) | payload` key for each key below its word;
 `u64_min_planes_plain` gets the same planes from
 `scatter_reduce("amin")` on biased int64 keys.  The methods
@@ -37,6 +39,12 @@ BACKGROUND = 0x00443322  # resolve.cu:166
 TILE_PX = 32
 
 U64_MIN = Kernel("pcr_u64_min", [P, P, P, P, I, P, I])
+U64_MIN_FLAT = Kernel("pcr_u64_min_flat", [P, P, P, P, I, P, I])
+# B3's kernel for each layout of a part (`csrc/tiles.cuh`): "chain", rows
+# of 1024 entries, a row one point index of 8 x 128 chains (the `.tpc` and
+# `.huffman` streams); "flat", one entry a point in file or node order
+# (the `.las` and Potree parts)
+U64_MIN_LAYOUTS = {"chain": U64_MIN, "flat": U64_MIN_FLAT}
 
 
 def swizzle_dims(width: int, height: int):
@@ -91,7 +99,7 @@ def u64_min_planes_plain(parts, size: int, plane=None):
     return key_views(plane)
 
 
-def u64_min_planes(parts, size: int, plane=None):
+def u64_min_planes(parts, size: int, plane=None, layout: str = "chain"):
     """B3: the planes of `u64_min_planes_plain`, one kernel launch for up
     to 64 parts into one u64 plane.
 
@@ -100,7 +108,10 @@ def u64_min_planes(parts, size: int, plane=None):
     the planes are strided views (stride 2) of the u64 plane.  With
     `plane` (`key_plane`, on the parts' device), the parts are resolved
     into that running plane, so that a frame's parts can go in groups.
+    `layout` ("chain" or "flat", `U64_MIN_LAYOUTS`) picks the kernel for
+    the parts' order; the planes do not depend on it.
     """
+    kernel = U64_MIN_LAYOUTS[layout]  # a KeyError for any other layout
     on_card = plane.is_cuda if plane is not None else parts[0][0].is_cuda
     if not on_card:
         return u64_min_planes_plain(parts, size, plane)
@@ -108,7 +119,7 @@ def u64_min_planes(parts, size: int, plane=None):
         plane = key_plane(size, parts[0][0].device)
     check_cuda("plane", plane, torch.int64, (size,))
     for group in part_groups(parts):
-        U64_MIN.launch(*group, plane.data_ptr(), size)
+        kernel.launch(*group, plane.data_ptr(), size)
     return key_views(plane)
 
 

@@ -78,6 +78,16 @@ k1 tied so that k2 decides, keys drawn from INT32_MIN, INT32_MAX and the
 sign boundary, a few whole triples repeated, and HQS-like tiles of which
 half the entries carry the 1080p frame's sentinel pid.
 
+`flat_streams` builds the flat parts of the `.las` and Potree frames (one
+entry a point, file or node order; B3's and B4's flat layout): every
+entry on one pixel and accepted, so that at 2**24 + 1 entries the colour
+sums wrap; runs of one pixel along consecutive entries, 1 to 96 long, so
+that they cross the kernels' lanes, columns, passes and tiles, some on
+sentinel pids and some with one depth for the whole run, so that the
+payload decides B3; and random pixels over the whole plane.
+`flat_cuts` splits such a stream into uneven parts, none a multiple of
+the kernels' 512-entry tile.
+
 `potree_part` builds what a Potree chunk hands B3 and B4: many nodes one
 after the other, each a run of nearby pixels in random order inside the
 node (its points fall around one spot of the screen, in the order they
@@ -99,6 +109,7 @@ RESOLVE_KINDS = ("one_pid", "alternating", "ties", "all_ones", "sentinel", "desc
 HUFFMAN_KINDS = ("escapes", "cw12", "boundary", "one_symbol", "last_batch",
                  "empty_separate", "uneven", "escape_lane", "unaligned", "understated",
                  "wild_lengths")
+FLAT_KINDS = ("one_pixel", "runs", "random")
 TILE_KINDS = ("equal", "sorted", "reverse", "k2_decides", "extremes", "repeats", "sentinel")
 # the pid of an HQS entry that lands nowhere at 1920x1080: the swizzled
 # id space's size, 60 x 34 tiles of 32 x 32 pixels (`raster.swizzle_dims`)
@@ -526,3 +537,68 @@ def potree_part(nodes: int, width: int, height: int, seed: int = 0):
     live = pid < size
     np.minimum.at(fbd, pid[live], dep[live])
     return pid.astype(np.uint32), dep, pay, colour, fbd
+
+
+def flat_streams(kind: str, n: int, size: int, seed: int = 0):
+    """-> (pid, dep, pay, colour, fb_depth) u32 arrays: n entries of the
+    given kind (`FLAT_KINDS`) in flat order, the payload the entry's
+    index, the colour random, and fb_depth the min depth of the live
+    entries on each pixel (B4's prepass), EMPTY elsewhere.  Depths lie
+    within 3 % of a pixel's own, so some fall outside B4's 1 %; on
+    `runs` and `random` some landed pixels have an EMPTY depth plane (a
+    NaN: nothing is accepted) and some entries lie exactly at the
+    tolerance or one ulp above it."""
+    rng = np.random.default_rng(seed)
+    pixels = rng.choice(size, min(size, 500), replace=False)
+    if kind == "one_pixel":  # every entry accepted: the sums wrap past 2**24
+        pid = np.full(n, pixels[0], np.int64)
+        dep = np.full(n, 0x3F800000, np.uint32)
+        return (pid.astype(np.uint32), dep, np.arange(n, dtype=np.uint32),
+                np.full(n, 0xFFFFFFFF, np.uint32), _depth_plane(pid, dep, size))
+    if kind == "runs":
+        lens = rng.integers(1, 97, n // 24 + 2)  # 48.5 on average: enough runs
+        lens = lens[: np.searchsorted(np.cumsum(lens), n) + 1]
+        run_pid = rng.choice(pixels, lens.size).astype(np.int64)
+        dead = rng.random(lens.size) < 0.1
+        run_pid[dead] = rng.choice([size, size + 1, 2**32 - 1], int(dead.sum()))
+        pid = np.repeat(run_pid, lens)[:n]
+        tied = np.repeat(rng.random(lens.size) < 0.25, lens)[:n]
+    else:
+        pid = rng.integers(0, size, n).astype(np.int64)
+        pid[rng.random(n) < 0.25] = size
+        tied = np.zeros(n, bool)
+    near = (1 + (pid % 997).astype(np.float32) * np.float32(0.5))
+    w = near * (1 + rng.random(n).astype(np.float32) * np.float32(0.03))
+    w[tied] = near[tied]  # one depth for the run: the payload decides
+    dep = w.view(np.uint32)
+    fbd = _depth_plane(pid, dep, size)
+    live = pid < size
+    landed = np.unique(pid[live])
+    fbd[landed[: landed.size // 20]] = 0xFFFFFFFF
+    edge = np.flatnonzero(live & (fbd[np.minimum(pid, size - 1)] != 0xFFFFFFFF))
+    pick = rng.choice(edge, min(edge.size, 200), replace=False)
+    limit = fbd[pid[pick]].view(np.float32) * np.float32(1.01)
+    half = pick.size // 2
+    dep[pick[:half]] = limit[:half].view(np.uint32)
+    dep[pick[half:]] = np.nextafter(limit[half:], np.float32(np.inf)).view(np.uint32)
+    colour = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    return pid.astype(np.uint32), dep, np.arange(n, dtype=np.uint32), colour, fbd
+
+
+def _depth_plane(pid, dep, size: int):
+    """The (size,) min depth of the entries with pid < size, EMPTY elsewhere."""
+    fbd = np.full(size, 0xFFFFFFFF, np.uint32)
+    live = pid < size
+    np.minimum.at(fbd, pid[live], dep[live])
+    return fbd
+
+
+def flat_cuts(n: int, parts: int, seed: int = 0) -> list:
+    """Cut points [0, ..., n] of `parts` uneven, non-empty parts of n
+    entries, none a multiple of 512 entries long."""
+    rng = np.random.default_rng(seed)
+    while True:
+        inner = np.sort(rng.choice(np.arange(1, n), parts - 1, replace=False))
+        cuts = [0, *inner.tolist(), n]
+        if all((b - a) % 512 for a, b in zip(cuts, cuts[1:])):
+            return cuts

@@ -4,6 +4,8 @@ reference, on the CPU.
 * `hqs_sums_plain` gives the four (r, g, b, n) planes of the TPU path
   (`pallas_hqs.hqs_sums_from_rows` over pid-sorted rows, interpret
   mode) bit for bit, and of a direct NumPy accumulation.
+* `hqs_sums(..., layout="flat")` (B4's flat layout, the `.las` and
+  Potree parts) gives them on `crafted.flat_streams` in uneven parts.
 * `hqs_sums_from_sorted[_multi]` (B9's plain version) give the planes
   of `pallas_hqs.hqs_sums_from_sorted[_multi]` in interpret mode.
 * The port's `huffman_tpu_hqs` frame (decode -> uncollapsed projection
@@ -149,6 +151,35 @@ def test_hqs_sums_plain_equals_rows_kernel_crafted(kind):
     assert 0 < counts.sum() < (pid < SIZE).sum()  # some accepted, some not
     if kind in ("sentinel", "mixed"):
         assert (pid >= SIZE).any() and (counts > 0).sum() > 1  # sentinels, many pixels
+
+
+@pytest.mark.parametrize("kind", crafted.FLAT_KINDS)
+def test_hqs_sums_flat_crafted_equals_rows_kernel(kind):
+    """Flat crafted streams (one pixel, runs of one pixel, random pixels)
+    through `hqs_sums(..., layout="flat")` on the CPU, in five uneven
+    parts none a multiple of the flat tile's 512 entries and in both
+    orders, against the TPU path over the pid-sorted stream padded with
+    dead entries to 4 rows of 4096."""
+    n = 4 * 4096 - 333
+    pid, dep, _pay, colour, fbd = crafted.flat_streams(kind, n, SIZE, seed=5)
+    padded = [np.concatenate([a, np.full(4 * 4096 - n, fill, np.uint32)]).reshape(4, 4096)
+              for a, fill in ((pid, SIZE), (dep, 0), (colour, 0))]
+    sp, sd, sy = jax.lax.sort([jnp.asarray(a) for a in padded], num_keys=1,
+                              is_stable=False, dimension=1)
+    want = hqs_sums_from_rows(sp, sd, sy, jnp.asarray(fbd), SIZE, interpret=True)
+    cuts = crafted.flat_cuts(n, 5, seed=1)
+    parts = [tuple(from_u32(a[x:y]) for a in (pid, dep, colour))
+             for x, y in zip(cuts, cuts[1:])]
+    for order in (parts, parts[::-1]):
+        got = hqs_sums(order, from_u32(fbd), SIZE, layout="flat")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+    counts = to_u32(got[3])
+    assert 0 < counts.sum() <= (pid < SIZE).sum()
+    if kind == "one_pixel":
+        assert counts.sum() == n  # every entry accepted
+    else:
+        assert counts.sum() < (pid < SIZE).sum()
 
 
 def _sorted_nk1(*arrays):

@@ -5,7 +5,10 @@ bit for bit — every u32 depth and payload, ties on depth broken by the
 smaller payload, out-of-range pids dropped — and, on one case and on
 the crafted ties, the planes of the TPU path (`dense_from_sorted_rows`
 over nk3-sorted rows, interpret mode).  The crafted streams of
-`tools/crafted.resolve_streams` are the ones the card holds B3 to.
+`tools/crafted.resolve_streams` and `crafted.flat_streams` are the ones
+the card holds B3 to, in its chain and flat layouts.  Each caller of B3
+and B4 names the layout of its parts: flat for the `.las` and Potree
+frames, chain for the `.tpc`, `.huffman` and sharded frames.
 """
 
 import jax
@@ -114,6 +117,113 @@ def test_u64_min_plain_crafted_ties_equals_merge_kernel():
     got = port.u64_min_planes(parts, SIZE)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("kind", crafted.FLAT_KINDS)
+def test_u64_min_flat_crafted_equals_scatter(kind):
+    """Each flat crafted kind through `u64_min_planes(..., layout="flat")`
+    on the CPU, in five uneven parts (none a multiple of the flat tile's
+    512 entries) and in both part orders."""
+    n = 16 * 1024 - 333
+    pid, dep, pay, _colour, _fb = crafted.flat_streams(kind, n, SIZE, seed=7)
+    want = ref.scatter_u64_min(jnp.asarray(pid), jnp.asarray(dep), jnp.asarray(pay), SIZE)
+    cuts = crafted.flat_cuts(n, 5, seed=2)
+    parts = [tuple(from_u32(a[x:y]) for a in (pid, dep, pay)) for x, y in zip(cuts, cuts[1:])]
+    for order in (parts, parts[::-1]):
+        got = port.u64_min_planes(order, SIZE, layout="flat")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(to_u32(g), np.asarray(w))
+
+
+def test_flat_streams_reach_their_corners():
+    n = 16 * 1024 - 333
+    for kind in crafted.FLAT_KINDS:
+        pid, dep, pay, colour, fb = crafted.flat_streams(kind, n, SIZE, seed=7)
+        live = pid < SIZE
+        same = pid[1:] == pid[:-1]
+        np.testing.assert_array_equal(pay, np.arange(n))
+        if kind == "one_pixel":  # every entry accepted
+            assert np.unique(pid).size == 1 and live.all() and (dep == fb[pid]).all()
+        elif kind == "runs":
+            # runs of one pixel longer than a lane's neighbour, some of them
+            # tied in depth, some dead
+            assert same.mean() > 0.9 and {SIZE, SIZE + 1, 2**32 - 1} & set(pid.tolist())
+            assert (same & (dep[1:] == dep[:-1]) & (pid[1:] < SIZE)).sum() > 1000
+        else:
+            assert kind == "random"
+            assert (same & (pid[1:] < SIZE)).mean() < 0.01 and 0.7 < live.mean() < 0.8
+        if kind != "one_pixel":  # EMPTY depths on landed pixels, tolerance edges
+            assert (fb[pid[live]] == 0xFFFFFFFF).any()
+            limit = fb[pid[live]].view(np.float32) * np.float32(1.01)
+            assert (dep[live].view(np.float32) == limit).any()
+    cuts = crafted.flat_cuts(n, 70, seed=3)
+    assert len(cuts) == 71 and all((b - a) % 512 for a, b in zip(cuts, cuts[1:]))
+
+
+def test_callers_pick_their_layout(monkeypatch):
+    """The `.las` resolve (`loop_las.resolve_parts`, which every `.las`
+    method and `basic` call) and the Potree resolves
+    (`loop_nodes.resolve_node_parts`, `hqs_node_sums`) hand B3 and B4
+    their parts in the flat layout; the `.tpc` frames (`huffman_tpu`,
+    `huffman_tpu_hqs`), the `.huffman` HQS frame and the sharded frame
+    (`parallel/mesh_native`) in the chain layout.  Each wrapper is
+    wrapped to record the layout it is given."""
+    from pcrhpg24_tpu_torch.parallel import mesh_native
+    from pcrhpg24_tpu_torch.render import hqs
+    from pcrhpg24_tpu_torch.render.methods import (huffman_hqs, huffman_tpu, huffman_tpu_hqs,
+                                                   loop_las, loop_nodes)
+
+    seen = []
+
+    def recorder(fn, kernel):
+        def wrapped(*args, layout="chain", **kw):
+            seen.append((kernel, layout))
+            return fn(*args, layout=layout, **kw)
+        return wrapped
+
+    mods = (loop_las, loop_nodes, huffman_tpu, huffman_tpu_hqs, huffman_hqs, mesh_native)
+    for mod in mods:
+        monkeypatch.setattr(mod, "u64_min_planes", recorder(port.u64_min_planes, "B3"))
+        if hasattr(mod, "hqs_sums"):
+            monkeypatch.setattr(mod, "hqs_sums", recorder(hqs.hqs_sums, "B4"))
+    w, h = 64, 32
+    size = port.swizzle_dims(w, h)[2]  # 2,048 = w * h: linear and swizzled alike
+    pid, dep, pay, colour, _fb = crafted.flat_streams("random", 3000, size, seed=1)
+    part = tuple(from_u32(a) for a in (pid, dep, pay))
+    rgba = from_u32(colour)
+
+    out = {}
+
+    def layouts(run):
+        seen.clear()
+        out["last"] = run()
+        return list(seen)
+
+    assert layouts(lambda: loop_las.resolve_parts([part], rgba, w, h, hqs=True)) == [
+        ("B3", "flat"), ("B4", "flat")]
+    assert layouts(lambda: loop_nodes.resolve_node_parts(iter([part]), size, "cpu")) == [
+        ("B3", "flat")]
+    fb_d = out["last"][0].contiguous()
+    assert layouts(lambda: loop_nodes.hqs_node_sums([part], rgba, fb_d, size)) == [
+        ("B4", "flat")]
+    streams = lambda *a, **k: ([part], size, torch.device("cpu"))  # noqa: E731
+    for mod in (huffman_tpu, huffman_tpu_hqs, mesh_native):
+        monkeypatch.setattr(mod, "frame_streams", streams)
+    monkeypatch.setattr(huffman_hqs, "hqs_streams", lambda *a, **k: [part])
+    args = dict(dev=None, frame_params=torch.zeros(4), tb=None, scale=None, width=w,
+                height=h, nchunks=1, cull=False)
+    assert layouts(lambda: huffman_tpu.render_frame_native(**args)) == [("B3", "chain")]
+    assert layouts(lambda: huffman_tpu_hqs.hqs_frame_native(**args)) == [
+        ("B3", "chain"), ("B4", "chain")]
+    assert layouts(lambda: huffman_hqs.hqs_huffman_frame(
+        None, None, None, None, None, w, h, [slice(0, 1)])) == [("B3", "chain"), ("B4", "chain")]
+    assert layouts(lambda: mesh_native._local_plane(args, collapse=True)) == [("B3", "chain")]
+
+
+def test_unknown_layout_raises():
+    part = tuple(torch.zeros(4, dtype=torch.int32) for _ in range(3))
+    with pytest.raises(KeyError):
+        port.u64_min_planes([part], SIZE, layout="rows")
 
 
 def test_resolve_streams_reach_their_corners():
