@@ -185,7 +185,26 @@ Phases, each of which exits non-zero on failure:
     cap.  What the debug modes, the depth plane, EDL and the overlay add
     to the event-timed frame, and the device time of the depth
     unswizzle, `edl_shade` and `draw_bounding_boxes` alone
-    (`utils/devtime.device_ms`).
+    (`utils/devtime.device_ms`);
+ 6b. probes (`pcrhpg24_tpu_torch/experiments/`, the card counterparts of
+    the TPU probes of B3's merge, ROADMAP queue D): their library, built
+    by `experiments/probes.py` in a thread while phase 3 runs, then
+    `exp_pallas_scatter_probe` (random atomicMins from one thread, one
+    warp and a full grid: 8192 int32 into 1 MB, and u64 keys at the
+    `.las` and Potree parts' entry counts into the 1080p plane and a
+    256 MiB one, timed by the slope of 1 and 5 chained launches),
+    `r3_mat_lesion` (B3's stages: full, atomic-all, no-atomic, floor,
+    no-load and count, in both layouts, on the orbit chunk, the orbit
+    frame's colour parts, the `.las` orbit part and the Potree steady
+    parts; full timed in turns with the shipped `u64_min_planes` and
+    within 3% of it), `r4_floor` (the chain tile's noop, prep, full and
+    nodma on the most populated chunk at bench.py's three views and the
+    corner) and `r4_winsize` (chain tiles of 16, 8 and 4 columns, flat
+    passes of 8 and 4, on the parts of `r3_mat_lesion`).  Each exact
+    variant is held bit-exact to `u64_min_planes_plain` (the scatter
+    probe to `scatter_reduce_`), each lesion's checksum to its plain
+    version; each prints `[probe]` lines, and each probe kernel is a row
+    of the kernels line with 0 launches (no path reaches it).
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -202,6 +221,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -292,6 +312,22 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
     "pcr_decode_huffman": ("B12 .huffman decode", "pcrhpg24_tpu_torch/csrc/decode_huffman.cu",
                            "pcrhpg24_tpu/render/decode_jax.py:34 (XLA, no pallas_call)"),
 }
+# the probes' kernels (`pcrhpg24_tpu_torch/experiments/`): C symbol ->
+# (name, source, TPU probe it answers for the card); reached by no path
+PROBE_INFO = {
+    "pcr_probe_scatter": ("probe: random atomicMin (exp_pallas_scatter_probe)",
+                          "pcrhpg24_tpu_torch/experiments/exp_pallas_scatter_probe.cu",
+                          "experiments/exp_pallas_scatter_probe.py:31 (chained: :63)"),
+    "pcr_probe_lesion": ("probe: B3 stage lesions (r3_mat_lesion)",
+                         "pcrhpg24_tpu_torch/experiments/r3_mat_lesion.cu",
+                         "experiments/r3_mat_lesion.py:255"),
+    "pcr_probe_floor": ("probe: B3 chain-tile anatomy (r4_floor)",
+                        "pcrhpg24_tpu_torch/experiments/r4_floor.cu",
+                        "experiments/r4_floor.py:222"),
+    "pcr_probe_winsize": ("probe: B3 tile widths (r4_winsize)",
+                          "pcrhpg24_tpu_torch/experiments/r4_winsize.cu",
+                          "experiments/r4_winsize.py:214"),
+}
 # cameras of the parametric scene: target (0, 0, 0) on the radius-10 sphere
 # (the app's default radius of 1000 leaves it a few pixels wide)
 PARAM_VIEWS = {
@@ -367,6 +403,16 @@ class Stopwatch:
         now = time.perf_counter()
         print(f"[phase] {what}: {now - self.t:.1f} s")
         self.t = now
+
+
+def print_ptxas(log: str) -> None:
+    """ptxas's registers, shared memory and spills of each kernel instance
+    in an nvcc log."""
+    for line in log.splitlines():
+        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+            print(f"[build] {line.strip()}")
+        elif "spill" in line:
+            print(f"[build] {line.strip()}")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -968,6 +1014,62 @@ def potree_phase(path: str, budget, results: dict, errs: dict, card: str) -> dic
     return shapes
 
 
+def probe_phase(targets: list, chunks: dict, counts, card: str) -> list:
+    """Phase 6b: the card counterparts of the TPU probes of B3's merge
+    (`pcrhpg24_tpu_torch/experiments/`).  `exp_pallas_scatter_probe` at
+    the u64 entry `counts`; `r3_mat_lesion` and `r4_winsize` on each of
+    `targets`, (label, parts, plane size) of B3's parts; `r4_floor` on
+    `chunks`, {view: (the most populated chunk's part, size)}.  Each
+    module holds every variant to its plain version and raises on a
+    mismatch.  -> the kernels line's rows of the four probe kernels (0
+    launches: no path reaches them), each timed on one of the parts."""
+    from pcrhpg24_tpu_torch.experiments import (exp_pallas_scatter_probe, probes,
+                                                r3_mat_lesion, r4_floor, r4_winsize)
+
+    scatter = exp_pallas_scatter_probe.run(card, counts)
+    lesions = {label: r3_mat_lesion.run(label, parts, size, card)
+               for label, parts, size in targets}
+    floors = {view: r4_floor.run(f"{view} chunk", [part], size, card)
+              for view, (part, size) in chunks.items()}
+    widths = {label: r4_winsize.run(label, parts, size, card)
+              for label, parts, size in targets}
+    print(f"[gate] probes: the scatter probe bit-exact vs scatter_reduce_ in "
+          f"{len(scatter)} cases; full, atomic-all, count, no-load and every tile width "
+          f"bit-exact vs u64_min_planes_plain, the no-atomic, floor and noop checksums "
+          f"equal to their plain versions, on {len(targets)} targets and {len(chunks)} "
+          f"chunks; full within 3% of the shipped kernel in each layout")
+
+    def row(sym: str, ms: float, plain_ms: float, library_ms: float, moved: int) -> dict:
+        name, source, replaces = PROBE_INFO[sym]
+        # every time is of one launch alone, on the card: ms, device_ms and
+        # kernel_device_ms are that one reading
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+                    max_abs_err=0, ms=round(ms, 4), device_ms=round(ms, 4),
+                    kernel_device_ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+                    bound_ms=round(moved / HBM_BYTES_PER_S * 1e3, 4), bound_by="bytes",
+                    library_ms=round(library_ms, 4))
+
+    def b3_row(sym: str, ms: float, parts, size: int) -> dict:
+        library, reset = probes.amin_library(parts, size)
+        return row(sym, ms, probes.plain_ms(parts, size), probes.time_ms(library, 5, reset),
+                   sum(nbytes(*p) for p in parts) + 8 * size)
+
+    chunk, las = targets[0], targets[2]
+    key = f"1080p plane, {counts[0]:,} u64 keys"  # the plain version is the library call
+    s = scatter[key]
+    rows = [row("pcr_probe_scatter", s["ms"], s["plain_ms"], s["plain_ms"],
+                s["n"] * 12 + s["words"] * 8),
+            b3_row("pcr_probe_lesion", lesions[las[0]]["flat"]["full"], *las[1:]),
+            b3_row("pcr_probe_floor", floors["orbit"]["full"], [chunks["orbit"][0]],
+                   chunks["orbit"][1]),
+            b3_row("pcr_probe_winsize", widths[chunk[0]][("chain", 8)], *chunk[1:])]
+    for r in rows:
+        print(f"[time] {r['name']}: {r['ms']:.4f} ms device (one launch alone) vs plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes), library "
+              f"{r['library_ms']:.4f} ms; reached by no path: 0 launches [{card}]")
+    return rows
+
+
 def fetch_frame(port: int, view: dict) -> tuple[bytes, str]:
     """GET the viewer's /frame for `view` until it is not stale."""
     import urllib.request
@@ -1012,6 +1114,7 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.engine.renderer import Renderer, Setting
     from pcrhpg24_tpu_torch.engine.viewer import ViewerServer
     from pcrhpg24_tpu_torch.formats.native_file import decode_tpc_batch_coords, read_tpc_batch
+    from pcrhpg24_tpu_torch.experiments import probes
     from pcrhpg24_tpu_torch.kernels import build
     from pcrhpg24_tpu_torch.render.camera import frame_setup_device
     from pcrhpg24_tpu_torch import native
@@ -1071,11 +1174,10 @@ def main(argv=None) -> int:
     build.load()
     print(f"[build] {os.path.relpath(lib, REPO)} from {len(build.sources())} sources "
           f"in csrc/ for sm_90a (one nvcc each, in parallel): {build_s:.2f} s")
-    for line in log.splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
-            print(f"[build] {line.strip()}")
-        elif "spill" in line:
-            print(f"[build] {line.strip()}")
+    print_ptxas(log)
+    # the probes' library (phase 6b) builds while the scenes are written
+    probe_pool = ThreadPoolExecutor(1)
+    probe_build = probe_pool.submit(probes.build)
 
     # ---- 3. scenes ----
     os.makedirs(os.path.join(REPO, "out"), exist_ok=True)
@@ -2215,6 +2317,28 @@ def main(argv=None) -> int:
                                  ("Potree steady", (pparts, pcolour, pfb))):
             flat_variants.run(label, *shapes_of, psize,
                               lambda fn, **kw: time_ms(fn, KERNEL_REPS, **kw), card)
+    watch.lap("kernel times")
+    # ---- 6b. probes: the card counterparts of the TPU probes of B3 ----
+    probe_lib, probe_s, probe_log = probe_build.result()
+    probe_pool.shutdown()
+    print(f"[build] probes: {os.path.relpath(probe_lib, REPO)} from the sources of "
+          f"pcrhpg24_tpu_torch/experiments/ for sm_90a: {probe_s:.2f} s (while the scenes "
+          f"were written)")
+    print_ptxas(probe_log)
+    hm = HuffmanTpu(r, data[2])
+    chunks = {}
+    for view in ("orbit", "closeup", "oblique", "corner"):
+        vparts, _size, _dev = frame_streams(**view_args(hm, r, TPC_VIEWS[view], 1.0))
+        chunks[view] = (probes.busiest(vparts, size), size)
+    potree_n = sum(p[0].numel() for p in pparts)
+    targets = [("orbit chunk", [stream], size),
+               (f"orbit frame's {len(fparts['colour'])} colour parts", fparts["colour"], size),
+               (".las orbit part", lparts, psize),
+               (f"Potree {potree_n / 1e6:.1f}M steady parts", pparts, psize)]
+    kernels += probe_phase(targets, chunks, (sum(p[0].numel() for p in lparts), potree_n),
+                           card)
+    del hm, chunks, targets
+    watch.lap("probes")
     # B12's resources, and its chunk's blocks spread evenly over the SMs
     res = kernel_resources()
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -48,12 +48,17 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in sources() + sorted(CSRC.glob("*.cuh")):
+def files_hash(files, flags=()) -> str:
+    """16 hex digits of the flags and the files' names and bytes."""
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *LINK_FLAGS, *flags]).encode())
+    for p in files:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_hash() -> str:
+    return files_hash(sources() + sorted(CSRC.glob("*.cuh")))
 
 
 def nvcc_path() -> str:
@@ -68,15 +73,18 @@ def nvcc_path() -> str:
     return found
 
 
-@functools.lru_cache(maxsize=1)
-def build() -> tuple[Path, float, str]:
-    """Compile the library if its hash has no build yet.
+def compile_library(srcs, headers, root: Path, lib_name: str,
+                    flags=()) -> tuple[Path, float, str]:
+    """Compile `srcs` (one nvcc each, all started together, with
+    `NVCC_FLAGS` and `flags`) and link them into `root/<hash>/lib_name`,
+    unless that hash, of the sources, the `headers` they include and the
+    flags, has a build already.
 
     Returns (library path, seconds spent compiling — 0 when cached,
     nvcc's output including `-Xptxas -v` register/smem counts).
     """
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / LIB_NAME
+    out_dir = root / files_hash([*srcs, *headers], flags)
+    lib = out_dir / lib_name
     log = out_dir / "nvcc.log"
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
@@ -85,9 +93,9 @@ def build() -> tuple[Path, float, str]:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     jobs = []
-    for src in sources():
+    for src in srcs:
         obj = out_dir / f".{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     text, failed = "", False
@@ -95,7 +103,7 @@ def build() -> tuple[Path, float, str]:
         out, _ = proc.communicate()
         text += " ".join(cmd) + "\n" + out
         failed |= proc.returncode != 0
-    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    tmp = out_dir / f".{lib_name}.{tag}"
     if not failed:
         cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for _c, o, _p in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -112,11 +120,24 @@ def build() -> tuple[Path, float, str]:
 
 
 @functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def build() -> tuple[Path, float, str]:
+    """Compile the library if its hash has no build yet: see
+    `compile_library`."""
+    return compile_library(sources(), sorted(CSRC.glob("*.cuh")), BUILD_ROOT, LIB_NAME)
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library; each exports `pcr_error_string`
+    (`csrc/runtime.cu`)."""
+    lib = ctypes.CDLL(str(path))
     lib.pcr_error_string.restype = ctypes.c_char_p
     lib.pcr_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    return open_library(build()[0])
 
 
 P = ctypes.c_void_p
@@ -129,17 +150,20 @@ class Kernel:
 
     `launches` is a plain integer: `launch` adds one after each
     successful launch and nothing else touches it but a caller that
-    resets it to 0.
+    resets it to 0.  `library` loads the library that exports the symbol
+    (default: the package's, `load`); `registry` is the dict it is
+    entered into by symbol (default: `KERNELS`).
     """
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list, library=None, registry=None):
         self.symbol = symbol
         self.argtypes = argtypes
+        self.library = library
         self.launches = 0
-        KERNELS[symbol] = self
+        (KERNELS if registry is None else registry)[symbol] = self
 
     def launch(self, *args) -> None:
-        lib = load()
+        lib = (self.library or load)()
         fn = getattr(lib, self.symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = [*self.argtypes, P]  # stream last
