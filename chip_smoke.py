@@ -204,7 +204,23 @@ Phases, each of which exits non-zero on failure:
     variant is held bit-exact to `u64_min_planes_plain` (the scatter
     probe to `scatter_reduce_`), each lesion's checksum to its plain
     version; each prints `[probe]` lines, and each probe kernel is a row
-    of the kernels line with 0 launches (no path reaches it).
+    of the kernels line with 0 launches (no path reaches it).  Then the
+    decoders' and B2's probes: `exp_pallas_variants` (B5's variants
+    full, ladder, rank-scan, no-table, no-window, no-refill and
+    no-refill-no-table, one launch alone, on the TPU probe's input and on
+    the v1 scene's busiest orbit chunk, with B5's stage split),
+    `exp_variant_slope` (the same by the slope of 1 and 9 chained
+    launches), `r3_decode_ilp` (B1 unrolled 2, 4, 8 and 64 times and with
+    its ranks ahead, each with its registers and spills, on the v2
+    scene's busiest orbit chunk), `exp_gather` (B12's 4096-entry table
+    in shared memory as int2, as two tables, or by `__ldg`, at the TPU
+    probe's shape and at B12's, randomly, per warp and as a dependent
+    chain) and `r3_div_parity` (how many bits of 1/w, x/w, the casts and
+    the affine chain each faster f32 form changes, on the TPU probe's
+    inputs and through B2's chain on the v2 orbit chunk, and each form's
+    time).  Every exact variant is held bit-exact to its plain version,
+    every lesion to its own, `full` of B5 and B1 within 3% of the
+    shipped kernel timed in turns.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -327,6 +343,18 @@ PROBE_INFO = {
     "pcr_probe_winsize": ("probe: B3 tile widths (r4_winsize)",
                           "pcrhpg24_tpu_torch/experiments/r4_winsize.cu",
                           "experiments/r4_winsize.py:214"),
+    "pcr_probe_b5": ("probe: B5 stage variants (exp_pallas_variants, exp_variant_slope)",
+                     "pcrhpg24_tpu_torch/experiments/exp_pallas_variants.cu",
+                     "experiments/exp_pallas_variants.py:118 (by slope: exp_variant_slope.py:30)"),
+    "pcr_probe_b1": ("probe: B1 unrolled and with ranks ahead (r3_decode_ilp)",
+                     "pcrhpg24_tpu_torch/experiments/r3_decode_ilp.cu",
+                     "experiments/r3_decode_ilp.py:141"),
+    "pcr_probe_gather": ("probe: B12's 4096-entry table read (exp_gather)",
+                         "pcrhpg24_tpu_torch/experiments/exp_gather.cu",
+                         "experiments/exp_gather.py:18"),
+    "pcr_probe_parity": ("probe: B2's f32 forms (r3_div_parity)",
+                         "pcrhpg24_tpu_torch/experiments/r3_div_parity.cu",
+                         "experiments/r3_div_parity.py:32 (affine: :62)"),
 }
 # cameras of the parametric scene: target (0, 0, 0) on the radius-10 sphere
 # (the app's default radius of 1000 leaves it a few pixels wide)
@@ -1039,34 +1067,90 @@ def probe_phase(targets: list, chunks: dict, counts, card: str) -> list:
           f"equal to their plain versions, on {len(targets)} targets and {len(chunks)} "
           f"chunks; full within 3% of the shipped kernel in each layout")
 
-    def row(sym: str, ms: float, plain_ms: float, library_ms: float, moved: int) -> dict:
-        name, source, replaces = PROBE_INFO[sym]
-        # every time is of one launch alone, on the card: ms, device_ms and
-        # kernel_device_ms are that one reading
-        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
-                    max_abs_err=0, ms=round(ms, 4), device_ms=round(ms, 4),
-                    kernel_device_ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-                    bound_ms=round(moved / HBM_BYTES_PER_S * 1e3, 4), bound_by="bytes",
-                    library_ms=round(library_ms, 4))
-
     def b3_row(sym: str, ms: float, parts, size: int) -> dict:
         library, reset = probes.amin_library(parts, size)
-        return row(sym, ms, probes.plain_ms(parts, size), probes.time_ms(library, 5, reset),
-                   sum(nbytes(*p) for p in parts) + 8 * size)
+        return probe_row(sym, ms, probes.plain_ms(parts, size),
+                         probes.time_ms(library, 5, reset),
+                         sum(nbytes(*p) for p in parts) + 8 * size)
 
     chunk, las = targets[0], targets[2]
     key = f"1080p plane, {counts[0]:,} u64 keys"  # the plain version is the library call
     s = scatter[key]
-    rows = [row("pcr_probe_scatter", s["ms"], s["plain_ms"], s["plain_ms"],
-                s["n"] * 12 + s["words"] * 8),
+    rows = [probe_row("pcr_probe_scatter", s["ms"], s["plain_ms"], s["plain_ms"],
+                      s["n"] * 12 + s["words"] * 8),
             b3_row("pcr_probe_lesion", lesions[las[0]]["flat"]["full"], *las[1:]),
             b3_row("pcr_probe_floor", floors["orbit"]["full"], [chunks["orbit"][0]],
                    chunks["orbit"][1]),
             b3_row("pcr_probe_winsize", widths[chunk[0]][("chain", 8)], *chunk[1:])]
+    print_probe_rows(rows, card)
+    return rows
+
+
+def probe_row(sym: str, ms: float, plain_ms: float, library_ms, moved: int) -> dict:
+    """A probe kernel's row of the kernels line: 0 launches (no path
+    reaches it), its bound the bytes `moved` over the card's memory
+    rate; `library_ms` None where no one PyTorch call computes it."""
+    name, source, replaces = PROBE_INFO[sym]
+    # every time is of one launch alone, on the card: ms, device_ms and
+    # kernel_device_ms are that one reading
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+                max_abs_err=0, ms=round(ms, 4), device_ms=round(ms, 4),
+                kernel_device_ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+                bound_ms=round(moved / HBM_BYTES_PER_S * 1e3, 4), bound_by="bytes",
+                library_ms=None if library_ms is None else round(library_ms, 4))
+
+
+def print_probe_rows(rows: list, card: str) -> None:
     for r in rows:
+        lib = "no single call" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[time] {r['name']}: {r['ms']:.4f} ms device (one launch alone) vs plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes), library "
-              f"{r['library_ms']:.4f} ms; reached by no path: 0 launches [{card}]")
+              f"{lib}; reached by no path: 0 launches [{card}]")
+
+
+def decoder_probe_phase(v1: tuple, v2: tuple, card: str, log: str) -> list:
+    """Phase 6b, the decoders' and B2's probes: `exp_pallas_variants` and
+    `exp_variant_slope` (B5's variants, one launch alone and by slope) on
+    the TPU probe's input and on `v1`, (label, `probes.chunk_args`) of the
+    v1 scene's busiest orbit chunk; `r3_decode_ilp` (B1's unroll and ranks
+    ahead, ptxas resources from `log`) on `v2`'s, the v2 scene's;
+    `exp_gather` (B12's table read) at B12's scale; `r3_div_parity` on the
+    TPU probe's inputs and on `v2`'s decoded points.  Each module holds
+    every variant to its plain version, and `full` within 3% of the
+    shipped kernel, and raises on a mismatch.  -> the kernels line's rows
+    of their four kernels (0 launches)."""
+    from pcrhpg24_tpu_torch.experiments import (exp_gather, exp_pallas_variants,
+                                                exp_variant_slope, r3_decode_ilp,
+                                                r3_div_parity)
+    from pcrhpg24_tpu_torch.render.decode_fixed import decode_fixed_batches
+
+    ev = exp_pallas_variants
+    b5_inputs = [("TPU probe input", ev.probe_input()), (v1[0], ev.inputs_of(v1[1]))]
+    variants = {label: ev.run(label, ins, card) for label, ins in b5_inputs}
+    slopes = {label: exp_variant_slope.run(label, ins, card, variants[label])
+              for label, ins in b5_inputs}
+    b1_in = r3_decode_ilp.inputs_of(v2[1])
+    ilp = r3_decode_ilp.run(v2[0], b1_in, card, log)
+    gather = exp_gather.run(card)
+    parity = r3_div_parity.run(card, (v2[0], v2[1], decode_fixed_batches(*b1_in)))
+    print(f"[gate] probes: B5's {len(ev.VARIANTS)} variants bit-exact vs decode_native_plain "
+          f"or their lesion plains on {len(b5_inputs)} inputs, one launch alone and chained "
+          f"({len(slopes)} x {len(ev.VARIANTS)} slopes); B1's {len(r3_decode_ilp.VARIANTS)} "
+          f"variants vs decode_fixed_plain; the gather's {len(gather) - 1} source x pattern "
+          f"cases vs gather_plain; the parity forms' exact ones vs their plain versions "
+          f"({len(parity['probe'])} forms on the TPU probe's inputs, "
+          f"{len(parity['b2'])} on B2's chain); full within 3% of the shipped B5 and B1")
+    times = parity["times"]
+    rows = [probe_row("pcr_probe_b5", variants[v1[0]]["full"], variants[v1[0]]["plain_ms"],
+                      None, ev.moved_bytes(b5_inputs[1][1])),
+            probe_row("pcr_probe_b1", ilp["full"], ilp["plain_ms"], None,
+                      r3_decode_ilp.moved_bytes(b1_in)),
+            probe_row("pcr_probe_gather", gather[("smem-int2", "chain")]["ms"],
+                      gather["plain_ms"], None,
+                      exp_gather.TABLES * exp_gather.TAB * 8 + exp_gather.LANES * 4),
+            probe_row("pcr_probe_parity", times[("inv", "div_rn", "elementwise")],
+                      times["plain_ms"], times["library_ms"], r3_div_parity.BIG * 8)]
+    print_probe_rows(rows, card)
     return rows
 
 
@@ -2337,7 +2421,15 @@ def main(argv=None) -> int:
                (f"Potree {potree_n / 1e6:.1f}M steady parts", pparts, psize)]
     kernels += probe_phase(targets, chunks, (sum(p[0].numel() for p in lparts), potree_n),
                            card)
-    del hm, chunks, targets
+    # the decoders' and B2's probes on the busiest orbit chunk of each .tpc
+    orbit = {}
+    for v in (1, 2):
+        hv = HuffmanTpu(r, data[v])
+        a = view_args(hv, r, TPC_VIEWS["orbit"], 1.0)
+        sl = probes.busiest_chunk(a)
+        orbit[v] = (f"v{v} orbit chunk {sl.start // CHUNK}", probes.chunk_args(a, sl))
+    kernels += decoder_probe_phase(orbit[1], orbit[2], card, probe_log)
+    del hm, hv, chunks, targets, orbit
     watch.lap("probes")
     # B12's resources, and its chunk's blocks spread evenly over the SMs
     res = kernel_resources()

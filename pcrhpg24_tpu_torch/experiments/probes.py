@@ -1,8 +1,10 @@
 """What the probe modules share: their library, B3's variants, the plain
-versions of their checksums, a device timer and the frames' parts.
+versions of their checksums, a device timer, the frames' parts and the
+`.tpc` chunks the decoders' probes take.
 
-The probes' CUDA sources (`*.cu` beside this file, and `probes.cuh`,
-which includes the package's `csrc/tiles.cuh`) build at first use, one
+The probes' CUDA sources (`*.cu` beside this file, `probes.cuh`, which
+includes the package's `csrc/tiles.cuh`, and the decoders' device code in
+`csrc/decode_native.cuh` and `csrc/decode_fixed.cuh`) build at first use, one
 nvcc each in parallel with the package's flags (`kernels/build.py`,
 `-fmad=false`), into `build/probes/<source hash>/libpcr_probes.so`,
 and load with ctypes.  Each probe's C entry point is a `Kernel` of this
@@ -15,6 +17,8 @@ the modules are what the kernels' results are held to.
 from __future__ import annotations
 
 import functools
+import os
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -28,6 +32,8 @@ from ..u32 import INT64_MAX, MASK32, biased_key, widen
 from ..utils.devtime import SPIN_CYCLES
 
 HERE = Path(__file__).resolve().parent
+# the package's headers the probes include (`-I csrc`)
+HEADERS = ("tiles.cuh", "async_copy.cuh", "decode_native.cuh", "decode_fixed.cuh")
 PROBES: dict[str, Kernel] = {}  # the probes' kernels, by C symbol
 
 # b3_probe's template values (`probes.cuh`)
@@ -47,7 +53,7 @@ def build() -> tuple[Path, float, str]:
     """Compile the probes' library if its hash has no build yet ->
     (library, seconds compiling, nvcc's log)."""
     return compile_library([*sorted(HERE.glob("*.cu")), CSRC / "runtime.cu"],
-                           [HERE / "probes.cuh", CSRC / "tiles.cuh"],
+                           [HERE / "probes.cuh", *(CSRC / h for h in HEADERS)],
                            BUILD_ROOT.parent / "probes", "libpcr_probes.so",
                            ["-I", str(CSRC)])
 
@@ -68,6 +74,13 @@ def require_cuda(parts) -> None:
         for t in part:
             if not t.is_cuda:
                 raise ValueError(f"the probes run on a card: got a tensor on {t.device}")
+
+
+def require_card(device) -> None:
+    """Raise unless `device` is a card: a probe that makes its own inputs
+    measures the card and has no plain fallback."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the probes run on a card, not on {device}")
 
 
 def new_sums(device) -> torch.Tensor:
@@ -304,7 +317,6 @@ def parts_main(stem: str, run, doc: str, argv=None) -> int:
     `--scene`'s frame parts at `--view`, and for a `.tpc` scene first on
     its most populated chunk alone; the card line last."""
     import argparse
-    import os
     import sys
 
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
@@ -331,3 +343,95 @@ def busiest(parts, size: int):
     """The part with the most live entries (a frame's most populated
     chunk)."""
     return max(parts, key=lambda p: int((widen(p[0]) < size).sum()))
+
+
+# ---- the decoders' probes: ptxas's resources of an instance, the chunks ----
+
+def ptxas_instances(log: str) -> dict:
+    """ptxas's lines for each kernel entry of an nvcc `-Xptxas -v` log ->
+    {mangled entry name: dict(lines, registers, smem, stack, spill_stores,
+    spill_loads)}: the lines after its "Compiling entry function" up to
+    the next one."""
+    out, name = {}, None
+    fields = {"registers": r"(\d+) registers", "smem": r"(\d+) bytes smem",
+              "stack": r"(\d+) bytes stack frame", "spill_stores": r"(\d+) bytes spill stores",
+              "spill_loads": r"(\d+) bytes spill loads"}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict(lines=[], **{k: 0 for k in fields})
+            continue
+        if name is None or not line.strip() or line.startswith(("nvcc", "/")):
+            continue
+        if "Compiling" in line or "bytes gmem" in line:
+            name = None
+            continue
+        out[name]["lines"].append(line.strip())
+        for key, pattern in fields.items():
+            found = re.search(pattern, line)
+            if found:
+                out[name][key] = int(found.group(1))
+    return out
+
+
+def instance_resources(pattern: str, log: str | None = None) -> dict:
+    """The ptxas resources of the probe library's kernel instances whose
+    mangled name matches `pattern` (a regex whose groups are the
+    template arguments) -> {groups: resources}."""
+    log = build()[2] if log is None else log
+    return {m.groups(): res for name, res in ptxas_instances(log).items()
+            if (m := re.search(pattern, name))}
+
+
+def busiest_chunk(frame_args: dict) -> slice:
+    """The 64-batch chunk of a `.tpc` frame with the most points in view
+    (the batches' LOD counts summed, as `chip_smoke.py` picks the chunk
+    its gates time), from `huffman_tpu.frame_args` -> its batch slice."""
+    from ..render.camera import frame_setup_device
+    from ..render.methods.huffman_tpu import CHUNK
+
+    a, fp = frame_args, frame_args["frame_params"]
+    dev = a["dev"]
+    lod_n = torch.clamp(frame_setup_device(
+        fp[0:16].reshape(4, 4), fp[16:22], dev["bbox_min"], dev["bbox_max"],
+        fp[23].to(torch.int32), a["width"], a["height"], fp[22], True), max=a["points"])
+    c = int(lod_n[: a["nchunks"] * CHUNK].reshape(-1, CHUNK).sum(1).argmax())
+    return slice(c * CHUNK, (c + 1) * CHUNK)
+
+
+def chunk_args(frame_args: dict, sl: slice) -> dict:
+    """A chunk's decoder and projection inputs from a `.tpc` frame's
+    `frame_args`: the batches' dev arrays (B1's or B5's keys, the colours
+    and anchors), their folded translations `tb`, and `frame12` (the wvp
+    rows 0, 1 and 3 by columns 0..2, then the scale), as `frame_streams`
+    hands them to B2."""
+    dev, fp = frame_args["dev"], frame_args["frame_params"]
+    keys = ("widths", "lj", "streams", "ptrs", "dD", "lut", "starts", "colors_k", "anchor")
+    out = {k: dev[k][sl] for k in keys if k in dev}
+    t = fp[24:40].reshape(4, 4)
+    out["tb"] = frame_args["tb"][sl]
+    out["frame12"] = torch.cat([t[0, :3], t[1, :3], t[3, :3], frame_args["scale"][:3]])
+    return out
+
+
+def tpc_chunk(scene: str, view: str = "orbit", width: int = 1920, height: int = 1080,
+              device: str = "cuda") -> tuple[dict, str]:
+    """`chunk_args` of a `.tpc` scene's busiest 64-batch chunk at `view`
+    (LOD 1.0) -> (dict, label)."""
+    from ..app import build_methods, wait_loaded
+    from ..engine.debug import Debug
+    from ..engine.method import Runtime
+    from ..engine.renderer import Renderer
+
+    Debug.lod = 1.0
+    r = Renderer(width, height, device)
+    r.apply_setting(views()[view])
+    m = build_methods(r, scene)[0]
+    wait_loaded(m, r)
+    r.controls_update()
+    a = m.frame_args(r)
+    sl = busiest_chunk(a)
+    chunk = chunk_args(a, sl)
+    Runtime.clear()
+    return chunk, f"{os.path.basename(scene)} {view} chunk {sl.start // (sl.stop - sl.start)}"
