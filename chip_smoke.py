@@ -220,7 +220,22 @@ Phases, each of which exits non-zero on failure:
     inputs and through B2's chain on the v2 orbit chunk, and each form's
     time).  Every exact variant is held bit-exact to its plain version,
     every lesion to its own, `full` of B5 and B1 within 3% of the
-    shipped kernel timed in turns.
+    shipped kernel timed in turns.  Then B10's exchange probe and the
+    rest of B3's (`merge_probe_phase`): `exp_mxu_perm` (55 partner-exchange
+    stages by shuffles, one warp through shared memory and a 1024-thread
+    block, at 256 and 4,096 tiles, alone and by slope, beside B10's row),
+    `r3_corient` (the chain tile staged, read row by row into registers,
+    or transposed by shuffles, with each form's registers and spills, on
+    the orbit chunk and the 4 colour parts), `r3_flushacc` (a warp's
+    same-pixel keys combined before the atomicMin, its atomics and
+    groups counted), `r3_i8dot` (a u32 depth pass, then a payload pass),
+    `r3_p4dot` (a 4-byte depth gather before the u64 atomicMin) and
+    `r4_pwin` (tiles per part against tiles at fixed positions, both
+    layouts, with their tile counts), each on the four targets of
+    `r3_mat_lesion`.  Every exact variant is bit-exact to its plain
+    version, every deterministic count equal to its plain count,
+    combine-count between the landed pixels and the groups, and
+    `staged`, `u64` and `per-part` within 3% of the shipped kernel.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -355,6 +370,23 @@ PROBE_INFO = {
     "pcr_probe_parity": ("probe: B2's f32 forms (r3_div_parity)",
                          "pcrhpg24_tpu_torch/experiments/r3_div_parity.cu",
                          "experiments/r3_div_parity.py:32 (affine: :62)"),
+    "pcr_probe_perm": ("probe: B10's partner exchange by shuffles and shared memory "
+                       "(exp_mxu_perm)",
+                       "pcrhpg24_tpu_torch/experiments/exp_mxu_perm.cu",
+                       "experiments/exp_mxu_perm.py:52"),
+    "pcr_probe_corient": ("probe: B3's chain tile read into registers (r3_corient)",
+                          "pcrhpg24_tpu_torch/experiments/r3_corient.cu",
+                          "experiments/r3_corient.py:254"),
+    "pcr_probe_combine": ("probe: B3 with a warp's same-pixel keys combined (r3_flushacc)",
+                          "pcrhpg24_tpu_torch/experiments/r3_flushacc.cu",
+                          "experiments/r3_flushacc.py:263"),
+    "pcr_probe_narrow": ("probe: B3 with narrow keys, two-pass and half-gather "
+                         "(r3_i8dot, r3_p4dot)",
+                         "pcrhpg24_tpu_torch/experiments/r3_i8dot.cu",
+                         "experiments/r3_i8dot.py:240 (half-gather: r3_p4dot.py:238)"),
+    "pcr_probe_pwin": ("probe: B3's tiles per part against position tiles (r4_pwin)",
+                       "pcrhpg24_tpu_torch/experiments/r4_pwin.cu",
+                       "experiments/r4_pwin.py:373 (per-part baseline: :322)"),
 }
 # cameras of the parametric scene: target (0, 0, 0) on the radius-10 sphere
 # (the app's default radius of 1000 leaves it a few pixels wide)
@@ -1051,8 +1083,8 @@ def probe_phase(targets: list, chunks: dict, counts, card: str) -> list:
     module holds every variant to its plain version and raises on a
     mismatch.  -> the kernels line's rows of the four probe kernels (0
     launches: no path reaches them), each timed on one of the parts."""
-    from pcrhpg24_tpu_torch.experiments import (exp_pallas_scatter_probe, probes,
-                                                r3_mat_lesion, r4_floor, r4_winsize)
+    from pcrhpg24_tpu_torch.experiments import (exp_pallas_scatter_probe, r3_mat_lesion,
+                                                r4_floor, r4_winsize)
 
     scatter = exp_pallas_scatter_probe.run(card, counts)
     lesions = {label: r3_mat_lesion.run(label, parts, size, card)
@@ -1067,12 +1099,6 @@ def probe_phase(targets: list, chunks: dict, counts, card: str) -> list:
           f"equal to their plain versions, on {len(targets)} targets and {len(chunks)} "
           f"chunks; full within 3% of the shipped kernel in each layout")
 
-    def b3_row(sym: str, ms: float, parts, size: int) -> dict:
-        library, reset = probes.amin_library(parts, size)
-        return probe_row(sym, ms, probes.plain_ms(parts, size),
-                         probes.time_ms(library, 5, reset),
-                         sum(nbytes(*p) for p in parts) + 8 * size)
-
     chunk, las = targets[0], targets[2]
     key = f"1080p plane, {counts[0]:,} u64 keys"  # the plain version is the library call
     s = scatter[key]
@@ -1084,6 +1110,17 @@ def probe_phase(targets: list, chunks: dict, counts, card: str) -> list:
             b3_row("pcr_probe_winsize", widths[chunk[0]][("chain", 8)], *chunk[1:])]
     print_probe_rows(rows, card)
     return rows
+
+
+def b3_row(sym: str, ms: float, parts, size: int) -> dict:
+    """A B3 probe's row: its plain version and library call
+    (`scatter_reduce_`) timed on the same parts; the bound, the parts'
+    bytes and the plane's."""
+    from pcrhpg24_tpu_torch.experiments import probes
+
+    library, reset = probes.amin_library(parts, size)
+    return probe_row(sym, ms, probes.plain_ms(parts, size), probes.time_ms(library, 5, reset),
+                     sum(nbytes(*p) for p in parts) + 8 * size)
 
 
 def probe_row(sym: str, ms: float, plain_ms: float, library_ms, moved: int) -> dict:
@@ -1150,6 +1187,53 @@ def decoder_probe_phase(v1: tuple, v2: tuple, card: str, log: str) -> list:
                       exp_gather.TABLES * exp_gather.TAB * 8 + exp_gather.LANES * 4),
             probe_row("pcr_probe_parity", times[("inv", "div_rn", "elementwise")],
                       times["plain_ms"], times["library_ms"], r3_div_parity.BIG * 8)]
+    print_probe_rows(rows, card)
+    return rows
+
+
+def merge_probe_phase(targets: list, card: str, log: str, b10_ms: float) -> list:
+    """Phase 6b, B10's exchange probe and the rest of B3's: `exp_mxu_perm`
+    (55 partner-exchange stages by shuffles and through shared memory, at
+    256 and 4,096 tiles, beside B10's device ms `b10_ms`); `r3_corient`
+    (the chain tile read into registers) on the chain targets;
+    `r3_flushacc` (a warp's same-pixel keys combined), `r3_i8dot` and
+    `r3_p4dot` (narrow keys) on each target in its layout; `r4_pwin`
+    (position tiles) on each in both layouts.  `targets`: (label, parts,
+    plane size) of B3's parts, the first two chain, the others flat, as
+    `probe_phase` takes them.  Each module holds every exact variant to
+    its plain version, each count to its plain count or between its
+    bounds, and each restated shipped kernel within 3% of it, and raises
+    otherwise.  -> the kernels line's rows of their five kernels (0
+    launches)."""
+    from pcrhpg24_tpu_torch.experiments import (exp_mxu_perm, r3_corient, r3_flushacc,
+                                                r3_i8dot, r3_p4dot, r4_pwin)
+
+    perm = exp_mxu_perm.run(card, b10_ms=b10_ms)
+    corient = {label: r3_corient.run(label, parts, size, card, log)
+               for label, parts, size in targets[:2]}
+    combine, narrow, pwin = {}, {}, {}
+    for (label, parts, size), layout in zip(targets, ("chain", "chain", "flat", "flat")):
+        combine[label] = r3_flushacc.run(label, parts, size, card, layout)
+        narrow[label] = r3_i8dot.run(label, parts, size, card, layout)
+        narrow[label].update(r3_p4dot.run(label, parts, size, card, layout))
+        pwin[label] = r4_pwin.run(label, parts, size, card)
+    print(f"[gate] probes: the exchange's {len(exp_mxu_perm.FORMS)} forms bit-exact vs "
+          f"perm_plain at {len(exp_mxu_perm.TILES)} tile counts; r3_corient's "
+          f"{len(r3_corient.FORMS)} forms on {len(corient)} chain targets, r3_flushacc's "
+          f"full, count, combine and combine-count, r3_i8dot's u64 and two-pass (also vs "
+          f"two_pass_plain), r3_p4dot's half-gather and r4_pwin's two tilings in both layouts "
+          f"bit-exact vs u64_min_planes_plain on {len(targets)} targets; no-atomic and "
+          f"combine-would-be equal to their plain counts, count and combine-count between the "
+          f"landed pixels and them, the tile counts equal to tiles_plain; staged, u64 and "
+          f"per-part within 3% of the shipped kernel")
+    las, potree = targets[2], targets[3]
+    big = perm[(exp_mxu_perm.TILES[-1], "shfl")]
+    rows = [probe_row("pcr_probe_perm", big["ms"], big["plain_ms"], None,
+                      exp_mxu_perm.TILES[-1] * exp_mxu_perm.SUB * exp_mxu_perm.LANES * 4 * 2),
+            b3_row("pcr_probe_corient", corient[targets[1][0]]["rowload"], *targets[1][1:]),
+            b3_row("pcr_probe_combine", combine[potree[0]]["combine"], *potree[1:]),
+            b3_row("pcr_probe_narrow", narrow[las[0]]["two-pass"], *las[1:]),
+            b3_row("pcr_probe_pwin", pwin[potree[0]][("flat", "position")]["ms"], *potree[1:])]
     print_probe_rows(rows, card)
     return rows
 
@@ -2429,6 +2513,8 @@ def main(argv=None) -> int:
         sl = probes.busiest_chunk(a)
         orbit[v] = (f"v{v} orbit chunk {sl.start // CHUNK}", probes.chunk_args(a, sl))
     kernels += decoder_probe_phase(orbit[1], orbit[2], card, probe_log)
+    # B10's exchange probe and the rest of B3's, on the same targets
+    kernels += merge_probe_phase(targets, card, probe_log, device_of["pcr_tile_sort3"])
     del hm, hv, chunks, targets, orbit
     watch.lap("probes")
     # B12's resources, and its chunk's blocks spread evenly over the SMs

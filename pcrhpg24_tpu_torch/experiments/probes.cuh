@@ -1,10 +1,12 @@
 // The card's counterpart of the TPU probes of B3's merge
-// (`experiments/r3_mat_lesion.py`, `r4_floor.py`, `r4_winsize.py`): B3's
-// body (`csrc/raster.cu`, `u64_min_kernel`) re-stated with a lesion and
-// a tile width as template values, for the probe modules beside this
-// file to time on the frames' parts.  The loads are the shipped ones
-// (`tiles.cuh`) wherever the width is the shipped width and the entries
-// are read; `kFull` at the shipped width is the shipped kernel.
+// (`experiments/r3_mat_lesion.py`, `r4_floor.py`, `r4_winsize.py`,
+// `r3_corient.py`, `r3_flushacc.py`, `r3_i8dot.py`, `r3_p4dot.py`,
+// `r4_pwin.py`): B3's body (`csrc/raster.cu`, `u64_min_kernel`) re-stated
+// with a lesion, a tile width and a way to read the tile (a form) as
+// template values, for the probe modules beside this file to time on the
+// frames' parts.  The loads are the shipped ones (`tiles.cuh`) wherever
+// the width is the shipped width, the form kStaged and the entries are
+// read; `kFull` at the shipped width and form is the shipped kernel.
 //
 // What a lesion keeps of B3, per warp-tile (32 entries x kCols):
 //   kFull       stream read, plane gather, compare, atomicMin (shipped);
@@ -18,7 +20,50 @@
 //               from a hash of the entry's index (`made`), no stream read;
 //   kCount      kFull, and counts the atomics it issued;
 //   kNoop       the grid and the tile's part lookup alone (chain layout);
-//               XORs each tile's (part, index).
+//               XORs each tile's (part, index);
+//   kCombine    kFull with a warp's same-pixel keys combined first: for
+//               each column, the lanes of one pid (`__match_any_sync`)
+//               take their least key (two `__reduce_min_sync`s: depth,
+//               then the payload of the lanes at that depth), and the
+//               lowest of them alone issues one atomicMin, if that key
+//               is below its gathered word (exact);
+//   kCombineCount     kCombine, and counts the atomics it issued;
+//   kCombineWouldBe   kCombine against a plane that stays EMPTY: counts
+//               the (tile, column, pid) groups of live entries with a key
+//               below all ones, and issues nothing;
+//   kDepthPass  a u32 atomicMin of each depth into a u32 depth plane
+//               (the first half of `plane`'s words), after a compare
+//               with the depth gathered from it;
+//   kPayPass    after kDepthPass, in another launch: each live entry whose
+//               depth equals its pixel's final depth issues a u32
+//               atomicMin of its payload into the payload plane (the
+//               second half); the two planes are the u64 plane's halves;
+//   kHalfGather kFull with the compare narrowed to the depth half of the
+//               plane word (a 4-byte gather, `d <= plane_d`); the
+//               atomicMin stays u64 (exact: an entry it skips has a
+//               depth above the word's, so a key above the word).
+//
+// How a warp reads its tile (kForm; the shipped kernel: kStaged):
+//   kStaged     `tiles::load_tile` / `load_flat`, the shipped loads;
+//   kRowLoad    chain: lane l reads row l of its tile itself, its 16
+//               columns (64 bytes of each stream) as four 16-byte loads,
+//               into registers: no shared memory, no transpose;
+//   kShflLoad   chain: the shipped coalesced loads (16 lanes a row, two
+//               rows an instruction), then a 32 x 16 register transpose
+//               by `__shfl_sync` rounds, so that lane l holds row l (its
+//               columns in a rotated order);
+//   kRowLoad8, kShflLoad8   the same, 8 columns a pass (two passes a
+//               tile, as the flat layout resolves its tile): half the
+//               registers; kShflLoad8 loads with 8 lanes a row;
+//   kPosition   tiles cut at fixed positions of the launch's parts laid
+//               end to end, not per part: chain, 32-row bands of the
+//               parts' rows (staged as kStaged); flat, runs of 512
+//               entries.  Each row or entry walks forward to its own
+//               part, so a tile may read from several parts, and no
+//               tile is padded at a part's end.
+// Every form keeps the shipped 4 blocks an SM (64 registers a thread):
+// the 16-column register forms hold 48 words of the tile and 16 plane
+// words a lane, and ptxas spills what does not fit.
 // A lesion that writes no plane folds what it read or decided into a
 // checksum, or nvcc would drop its work: each warp reduces its lanes'
 // folds and adds or XORs the result into one of kSlots words (one word
@@ -43,13 +88,25 @@ constexpr int kSlots = 32;     // checksum words, one 128-byte line apart
 constexpr int kSlotPitch = 32;
 
 enum Lesion { kFullB3 = 0, kAtomicAll = 1, kNoAtomic = 2, kFloor = 3, kNoLoad = 4,
-              kCount = 5, kNoop = 6 };
+              kCount = 5, kNoop = 6, kCombine = 7, kCombineCount = 8, kCombineWouldBe = 9,
+              kDepthPass = 10, kPayPass = 11, kHalfGather = 12 };
+enum Form { kStaged = 0, kRowLoad = 1, kShflLoad = 2, kPosition = 3, kRowLoad8 = 4,
+            kShflLoad8 = 5 };
+// columns a pass of a register form (0: not one)
+template <int kForm>
+constexpr int kPassCols = kForm == kRowLoad || kForm == kShflLoad     ? tiles::kCols
+                          : kForm == kRowLoad8 || kForm == kShflLoad8 ? tiles::kCols / 2
+                                                                      : 0;
 
 // the lesions whose checksum is an XOR, and those whose checksum is a count
 template <int kLesion>
 constexpr bool kXorFold = kLesion == kFloor || kLesion == kNoop;
 template <int kLesion>
-constexpr bool kAddFold = kLesion == kNoAtomic || kLesion == kCount;
+constexpr bool kAddFold = kLesion == kNoAtomic || kLesion == kCount ||
+                          kLesion == kCombineCount || kLesion == kCombineWouldBe;
+template <int kLesion>
+constexpr bool kCombined = kLesion == kCombine || kLesion == kCombineCount ||
+                           kLesion == kCombineWouldBe;
 
 // lowbias32 (a 32-bit integer hash): every step wraps mod 2**32
 __host__ __device__ __forceinline__ uint32_t mix(uint32_t x) {
@@ -148,6 +205,177 @@ __device__ __forceinline__ void load_flat(const Parts& parts, int t, int lane, i
   }
 }
 
+// Rows of a chain part of n entries
+__host__ __device__ __forceinline__ long long chain_rows(long long n) {
+  return (n + kRow - 1) / kRow;
+}
+
+// The first entry of chain tile t's row `lane`, column c0 (16-column
+// tiles), and its part.
+__device__ __forceinline__ long long row_entry(const Parts& parts, int t, int lane, int c0,
+                                               int& p) {
+  int local;
+  p = tiles::part_of(parts, t, local);
+  constexpr int kBlocks = kRow / tiles::kCols;
+  return static_cast<long long>(local / kBlocks) * 32 * kRow +
+         static_cast<long long>(lane) * kRow + (local % kBlocks) * tiles::kCols + c0;
+}
+
+__device__ __forceinline__ void unpack(const uint4& v, uint32_t* out) {
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+// kRowLoad, kRowLoad8: columns c0 .. c0 + kW - 1 of row `lane` of chain
+// tile t, kW / 4 16-byte evict-first loads of each stream (the part
+// pointers are 16-byte aligned: the wrapper checks); a row that ends
+// inside them is read entry by entry up to n.  Entries past n read kFull,
+// 0, 0.
+template <int kW>
+__device__ __forceinline__ void load_row_pass(const Parts& parts, int t, int lane, int c0,
+                                              uint32_t (&q)[kW], uint32_t (&d)[kW],
+                                              uint32_t (&y)[kW]) {
+  int p;
+  const long long e0 = row_entry(parts, t, lane, c0, p);
+  const long long n = parts.n[p];
+  if (e0 + kW <= n) {
+    const uint4* gp = reinterpret_cast<const uint4*>(parts.pid[p] + e0);
+    const uint4* gd = reinterpret_cast<const uint4*>(parts.dep[p] + e0);
+    const uint4* gy = reinterpret_cast<const uint4*>(parts.pay[p] + e0);
+#pragma unroll
+    for (int v = 0; v < kW / 4; ++v) {
+      unpack(__ldcs(gp + v), q + 4 * v);
+      unpack(__ldcs(gd + v), d + 4 * v);
+      unpack(__ldcs(gy + v), y + 4 * v);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const bool in = e0 + c < n;
+      q[c] = in ? __ldcs(parts.pid[p] + e0 + c) : kFull;
+      d[c] = in ? __ldcs(parts.dep[p] + e0 + c) : 0u;
+      y[c] = in ? __ldcs(parts.pay[p] + e0 + c) : 0u;
+    }
+  }
+}
+
+// A 32 x kW transpose in registers (R = 32 / kW rows an instruction):
+// before it, v[j] of lane s is row R j + s / kW, column s % kW of a pass;
+// after it, v[k] of lane l is row l, column (l / R + k) % kW.  Round k
+// reads lane kW (l % R) + (l / R + k) % kW, which holds row l in
+// register l / R; each lane first rotates its registers so that round k
+// sends v[(s % kW - k) % kW] from a fixed slot (a reversal, then a barrel
+// rotation by s % kW in log2(kW) select stages).
+template <int kW>
+__device__ __forceinline__ void transpose_pass(uint32_t (&v)[kW], int lane) {
+  static_assert(kW == 8 || kW == 16, "a pass of 8 or 16 columns");
+  constexpr int kR = 32 / kW;
+  uint32_t a[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) a[k] = v[(kW - k) & (kW - 1)];
+  const int m = lane & (kW - 1);
+#pragma unroll
+  for (int b = 0; (1 << b) < kW; ++b) {
+    const bool on = (m >> b) & 1;
+    uint32_t r[kW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) r[k] = on ? a[(k - (1 << b)) & (kW - 1)] : a[k];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) a[k] = r[k];
+  }
+  const int src = kW * (lane % kR);
+  const int j = lane / kR;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) v[k] = __shfl_sync(kFull, a[k], src + ((j + k) & (kW - 1)));
+}
+
+// kShflLoad, kShflLoad8: columns c0 .. c0 + kW - 1 of chain tile t by
+// coalesced evict-first loads (lane l: row R j + l / kW, column l % kW,
+// for j < kW; at kW = 16 the shipped loads), transposed so that lane l
+// holds row l.  Entries past n read kFull, 0, 0.
+template <int kW>
+__device__ __forceinline__ void load_shfl_pass(const Parts& parts, int t, int lane, int c0,
+                                               uint32_t (&q)[kW], uint32_t (&d)[kW],
+                                               uint32_t (&y)[kW]) {
+  constexpr int kR = 32 / kW;
+  int p;
+  const long long base = row_entry(parts, t, 0, c0 + (lane & (kW - 1)), p);
+  const long long n = parts.n[p];
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const long long e = base + static_cast<long long>(kR * j + lane / kW) * kRow;
+    const bool in = e < n;
+    q[j] = in ? __ldcs(parts.pid[p] + e) : kFull;
+    d[j] = in ? __ldcs(parts.dep[p] + e) : 0u;
+    y[j] = in ? __ldcs(parts.pay[p] + e) : 0u;
+  }
+  transpose_pass<kW>(q, lane);
+  transpose_pass<kW>(d, lane);
+  transpose_pass<kW>(y, lane);
+}
+
+// kPosition, chain: stage band t / 64 of the launch's rows laid end to end
+// (part p's chain_rows(n) rows after the parts' before it), columns 16 (t
+// % 64) .. + 15, as load_tile stages a tile.  Each lane walks forward from
+// part 0 to its rows' parts; entries past a part's end read kFull, 0, 0.
+__device__ __forceinline__ void load_position_tile(const Parts& parts, int t, int lane,
+                                                   uint32_t* sp, uint32_t* sd, uint32_t* sy) {
+  constexpr int kBlocks = kRow / tiles::kCols;
+  const long long band = static_cast<long long>(t / kBlocks) * 32;
+  const int col = (t % kBlocks) * tiles::kCols + (lane & (tiles::kCols - 1));
+  int p = 0;
+  long long row0 = 0, row1 = chain_rows(parts.n[0]);
+#pragma unroll 8
+  for (int r2 = 0; r2 < 16; ++r2) {  // two tile rows a step, as load_tile
+    const int r = 2 * r2 + (lane >> 4);
+    const long long g = band + r;
+    while (g >= row1 && p + 1 < parts.count) {
+      ++p;
+      row0 = row1;
+      row1 += chain_rows(parts.n[p]);
+    }
+    const long long e = (g - row0) * kRow + col;
+    const bool in = g < row1 && e < parts.n[p];
+    const int at = r * tiles::kPitch + (lane & (tiles::kCols - 1));
+    sp[at] = in ? __ldcs(parts.pid[p] + e) : kFull;
+    sd[at] = in ? __ldcs(parts.dep[p] + e) : 0u;
+    sy[at] = in ? __ldcs(parts.pay[p] + e) : 0u;
+  }
+  __syncwarp();
+}
+
+// kPosition, flat: columns c0 .. c0 + kPass - 1 of the 512-entry run t of
+// the launch's entries laid end to end; lane l, column c holds entry
+// 512 t + 32 (c0 + c) + l, which walks forward to its own part.
+template <int kPass>
+__device__ __forceinline__ void load_position_flat(const Parts& parts, int t, int lane, int c0,
+                                                   uint32_t (&q)[kPass], uint32_t (&d)[kPass],
+                                                   uint32_t (&y)[kPass]) {
+  const long long g0 = static_cast<long long>(t) * tiles::kFlatTile + 32 * c0 + lane;
+  int p = 0;
+  long long e0 = 0, e1 = parts.n[0];
+#pragma unroll
+  for (int c = 0; c < kPass; ++c) {
+    const long long g = g0 + 32 * c;
+    while (g >= e1 && p + 1 < parts.count) {
+      ++p;
+      e0 = e1;
+      e1 += parts.n[p];
+    }
+    const bool in = g < e1;
+    q[c] = in ? __ldcs(parts.pid[p] + (g - e0)) : kFull;
+    d[c] = in ? __ldcs(parts.dep[p] + (g - e0)) : 0u;
+    y[c] = in ? __ldcs(parts.pay[p] + (g - e0)) : 0u;
+  }
+}
+
+template <bool kL1, typename T>
+__device__ __forceinline__ T plane_load(const T* at) {
+  return kL1 ? __ldca(at) : __ldcg(at);
+}
+
 // B3's compare-then-atomicMin over kW columns of a lane (pid(c), key(c)),
 // with the lesion's cuts; plane words through L1 (kL1, the flat layout)
 // or L2 only (the chain layout), as the shipped kernel reads them.
@@ -165,6 +393,78 @@ __device__ __forceinline__ void resolve(const Pid& pid, const Key& key,
 #pragma unroll
     for (int c = 0; c < kW; ++c)
       if (pid(c) < size) atomicMin(plane + pid(c), key(c));
+  } else if constexpr (kCombined<kLesion>) {
+    // every lane reaches every match and reduce (dead entries with their
+    // pids, which no live pid equals); only the atomic is predicated
+    const int lane = threadIdx.x & 31;
+    unsigned long long old[kW];
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      old[c] = q < size ? plane_load<kL1>(plane + q) : 0ull;
+    }
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      const unsigned long long k = key(c);
+      const uint32_t kd = static_cast<uint32_t>(k >> 32);
+      const unsigned peers = __match_any_sync(kFull, q);
+      const uint32_t dm = __reduce_min_sync(peers, kd);
+      const uint32_t ym = __reduce_min_sync(peers, kd == dm ? static_cast<uint32_t>(k) : kFull);
+      const unsigned long long km = (static_cast<unsigned long long>(dm) << 32) | ym;
+      if (__ffs(peers) - 1 == lane && km < old[c]) {
+        if constexpr (kLesion == kCombineWouldBe) {
+          ++fold;
+        } else {
+          atomicMin(plane + q, km);
+          if constexpr (kLesion == kCombineCount) ++fold;
+        }
+      }
+    }
+  } else if constexpr (kLesion == kDepthPass) {
+    uint32_t* dp = reinterpret_cast<uint32_t*>(plane);
+    uint32_t old[kW];
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      old[c] = q < size ? plane_load<kL1>(dp + q) : 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t kd = static_cast<uint32_t>(key(c) >> 32);
+      if (kd < old[c]) atomicMin(dp + pid(c), kd);
+    }
+  } else if constexpr (kLesion == kPayPass) {
+    const uint32_t* dp = reinterpret_cast<const uint32_t*>(plane);
+    uint32_t* yp = reinterpret_cast<uint32_t*>(plane) + size;
+    uint32_t won[kW];
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      won[c] = q < size ? plane_load<kL1>(dp + q) : 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      const unsigned long long k = key(c);
+      if (q < size && static_cast<uint32_t>(k >> 32) == won[c])
+        atomicMin(yp + q, static_cast<uint32_t>(k));
+    }
+  } else if constexpr (kLesion == kHalfGather) {
+    // the depth half of word q is u32 word 2q + 1 (little-endian)
+    const uint32_t* hi = reinterpret_cast<const uint32_t*>(plane) + 1;
+    uint32_t old[kW];
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      old[c] = q < size ? plane_load<kL1>(hi + 2 * static_cast<size_t>(q)) : 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const uint32_t q = pid(c);
+      const unsigned long long k = key(c);
+      if (q < size && static_cast<uint32_t>(k >> 32) <= old[c]) atomicMin(plane + q, k);
+    }
   } else {
     unsigned long long old[kW];
 #pragma unroll
@@ -185,13 +485,19 @@ __device__ __forceinline__ void resolve(const Pid& pid, const Key& key,
   }
 }
 
-// B3 in kLayout with lesion kLesion; kWidth is the chain tile's columns
-// (shipped: 16) or the flat tile's columns a pass (shipped: 8).  Parts
-// carry tile0 for that width (`make_parts`).
-template <int kLayout, int kLesion, int kWidth>
+// B3 in kLayout with lesion kLesion, its tiles read as kForm says; kWidth
+// is the chain tile's columns (shipped: 16) or the flat tile's columns a
+// pass (shipped: 8).  Parts carry tile0 for that width and form
+// (`make_parts`).
+template <int kLayout, int kLesion, int kWidth, int kForm = kStaged>
 __global__ void __launch_bounds__(kWarps * 32, 4)
 b3_probe(const __grid_constant__ Parts parts, unsigned long long* __restrict__ plane,
          uint32_t size, unsigned int* __restrict__ sums) {
+  static_assert(kForm == kStaged || (kForm == kPosition && kLesion != kNoop &&
+                                     kWidth == (kLayout == tiles::kFlat ? tiles::kFlatCols
+                                                                        : tiles::kCols)) ||
+                    (kLayout == tiles::kChain && kWidth == tiles::kCols && kLesion != kNoop),
+                "a form other than the shipped loads takes the shipped width");
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWarps + warp;
@@ -206,8 +512,24 @@ b3_probe(const __grid_constant__ Parts parts, unsigned long long* __restrict__ p
 #pragma unroll 1
     for (int c0 = 0; c0 < tiles::kCols; c0 += kWidth) {
       uint32_t q[kWidth], d[kWidth], y[kWidth];
-      load_flat<kWidth, kMade>(parts, t, lane, c0, size, q, d, y);
+      if constexpr (kForm == kPosition) load_position_flat<kWidth>(parts, t, lane, c0, q, d, y);
+      else load_flat<kWidth, kMade>(parts, t, lane, c0, size, q, d, y);
       resolve<kLesion, true, kWidth>(
+          [&](int c) { return q[c]; },
+          [&](int c) { return (static_cast<unsigned long long>(d[c]) << 32) | y[c]; },
+          plane, size, fold);
+    }
+  } else if constexpr (kPassCols<kForm> > 0) {
+    // the tile in registers, lane l row l, kW columns a pass
+    constexpr int kW = kPassCols<kForm>;
+#pragma unroll 1
+    for (int c0 = 0; c0 < tiles::kCols; c0 += kW) {
+      uint32_t q[kW], d[kW], y[kW];
+      if constexpr (kForm == kRowLoad || kForm == kRowLoad8)
+        load_row_pass<kW>(parts, t, lane, c0, q, d, y);
+      else
+        load_shfl_pass<kW>(parts, t, lane, c0, q, d, y);
+      resolve<kLesion, false, kW>(
           [&](int c) { return q[c]; },
           [&](int c) { return (static_cast<unsigned long long>(d[c]) << 32) | y[c]; },
           plane, size, fold);
@@ -219,7 +541,8 @@ b3_probe(const __grid_constant__ Parts parts, unsigned long long* __restrict__ p
     uint32_t* sp = tile + warp * 3 * kTileWords;
     uint32_t* sd = sp + kTileWords;
     uint32_t* sy = sd + kTileWords;
-    load_tile<kWidth, kMade>(parts, t, lane, size, sp, sd, sy);
+    if constexpr (kForm == kPosition) load_position_tile(parts, t, lane, sp, sd, sy);
+    else load_tile<kWidth, kMade>(parts, t, lane, size, sp, sd, sy);
     // lane l holds point l of the band in each of the tile's chains
     resolve<kLesion, false, kWidth>(
         [&](int c) { return sp[lane * kPitch + c]; },
@@ -240,30 +563,49 @@ b3_probe(const __grid_constant__ Parts parts, unsigned long long* __restrict__ p
   }
 }
 
+// Tiles of kForm kPosition over `count` parts of n entries laid end to
+// end: 32-row bands x 16-column blocks of their rows (chain), or runs of
+// 512 of their entries (flat).
+template <int kLayout>
+inline long long position_tiles(const long long* n, int count) {
+  long long total = 0;
+  for (int p = 0; p < count; ++p) total += kLayout == tiles::kChain ? chain_rows(n[p]) : n[p];
+  return kLayout == tiles::kChain ? (total + 31) / 32 * (kRow / tiles::kCols)
+                                  : (total + tiles::kFlatTile - 1) / tiles::kFlatTile;
+}
+
 // The Parts of `count` parts for kLayout at kWidth: the shipped ones,
-// with the chain tiles recounted at kWidth columns; false if out of range.
-template <int kLayout, int kWidth>
+// with the chain tiles recounted at kWidth columns; for kPosition,
+// tile0[count] is the launch's position tiles (the rest, per part, is
+// not read); false if out of range.
+template <int kLayout, int kWidth, int kForm = kStaged>
 inline bool make_parts(Parts& parts, const void* const* pid, const void* const* dep,
                        const void* const* pay, const long long* n, int count) {
   if (!tiles::make_parts(parts, pid, dep, pay, n, count, kLayout)) return false;
   if constexpr (kLayout == tiles::kChain)
     for (int p = 0; p < count; ++p)
       parts.tile0[p + 1] = parts.tile0[p] + chain_tiles<kWidth>(n[p]);
+  if constexpr (kForm == kPosition) {
+    const long long tiles = position_tiles<kLayout>(n, count);
+    if (tiles > 0x7fffffff) return false;
+    parts.tile0[count] = static_cast<int>(tiles);
+  }
   return true;
 }
 
-// One launch of b3_probe<kLayout, kLesion, kWidth> over `count` (<= 64)
-// parts; sums is kSlots x kSlotPitch words, zeroed by the caller.
-template <int kLayout, int kLesion, int kWidth>
+// One launch of b3_probe<kLayout, kLesion, kWidth, kForm> over `count`
+// (<= 64) parts; sums is kSlots x kSlotPitch words, zeroed by the caller.
+template <int kLayout, int kLesion, int kWidth, int kForm = kStaged>
 int launch_b3(const void* const* pid, const void* const* dep, const void* const* pay,
               const long long* n, int count, void* plane, int size, void* sums,
               void* stream) {
   Parts parts;
-  if (!make_parts<kLayout, kWidth>(parts, pid, dep, pay, n, count))
+  if (!make_parts<kLayout, kWidth, kForm>(parts, pid, dep, pay, n, count))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kLayout == tiles::kFlat || kLesion == kNoop
-                       ? 0 : kWarps * 3 * 32 * (kWidth + 1) * 4;
-  auto kernel = b3_probe<kLayout, kLesion, kWidth>;
+  const bool staged = kLayout == tiles::kChain && kLesion != kNoop &&
+                      (kForm == kStaged || kForm == kPosition);
+  const int smem = staged ? kWarps * 3 * 32 * (kWidth + 1) * 4 : 0;
+  auto kernel = b3_probe<kLayout, kLesion, kWidth, kForm>;
   static bool attr_set = false;
   if (!attr_set && smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -290,3 +632,10 @@ int launch_b3(const void* const* pid, const void* const* dep, const void* const*
 #define PCR_B3_CASE(L, K, W)                                                        \
   if (layout == (L) && lesion == (K) && width == (W))                               \
   return probes::launch_b3<L, K, W>(pid, dep, pay, n, count, plane, size, sums, stream)
+
+// One instance of b3_probe as a case of a probe module's C entry point
+// that also takes a form: `int symbol(int layout, int lesion, int width,
+// int form, ...)`, the rest as PCR_B3_CASE's.
+#define PCR_B3_FORM(L, K, W, F)                                                     \
+  if (layout == (L) && lesion == (K) && width == (W) && form == (F))                \
+  return probes::launch_b3<L, K, W, F>(pid, dep, pay, n, count, plane, size, sums, stream)

@@ -39,13 +39,19 @@ PROBES: dict[str, Kernel] = {}  # the probes' kernels, by C symbol
 # b3_probe's template values (`probes.cuh`)
 LAYOUTS = {"chain": 0, "flat": 1}
 LESIONS = {"full": 0, "atomic-all": 1, "no-atomic": 2, "floor": 3, "no-load": 4, "count": 5,
-           "noop": 6}
+           "noop": 6, "combine": 7, "combine-count": 8, "combine-would-be": 9, "depth-pass": 10,
+           "pay-pass": 11, "half-gather": 12}
+# how a warp reads its tile (b3_probe's kForm): the shipped loads, the chain
+# tile's row read into registers, or transposed by shuffles (16 columns at
+# once, or 8 a pass), position tiles
+FORMS = {"staged": 0, "rowload": 1, "shfl": 2, "position": 3, "rowload-8": 4, "shfl-8": 5}
 SHIPPED_WIDTH = {"chain": 16, "flat": 8}  # chain tile columns, flat columns a pass
 XOR_FOLDS = ("floor", "noop")  # the other checksums add
 SLOTS, SLOT_PITCH = 32, 32  # the checksum words
 ROW = 1024  # entries of a chain row (`tiles::kRow`)
 FLAT_TILE = 512  # entries of a flat tile
 B3_ARGS = [I, I, I, P, P, P, P, I, P, I, P]  # layout, lesion, width, pcr_u64_min's, sums
+B3_FORM_ARGS = [I, I, I, I, P, P, P, P, I, P, I, P]  # the same with the form after the width
 
 
 @functools.lru_cache(maxsize=1)
@@ -88,14 +94,16 @@ def new_sums(device) -> torch.Tensor:
 
 
 def launch_b3(kernel: Kernel, parts, size: int, layout: str, lesion: str, width: int,
-              plane: torch.Tensor, sums: torch.Tensor) -> None:
+              plane: torch.Tensor, sums: torch.Tensor, form: str | None = None) -> None:
     """One launch of b3_probe<layout, lesion, width> per group of up to 64
-    parts into `plane` (`key_plane`) and the checksum words `sums`."""
+    parts into `plane` (`key_plane`) and the checksum words `sums`; a
+    kernel whose C entry point takes a form (`B3_FORM_ARGS`) gets `form`
+    (`FORMS`)."""
     check_cuda("plane", plane, torch.int64, (size,))
     check_cuda("sums", sums, torch.int32, (SLOTS * SLOT_PITCH,))
+    head = [LAYOUTS[layout], LESIONS[lesion], width] + ([] if form is None else [FORMS[form]])
     for group in part_groups(parts):
-        kernel.launch(LAYOUTS[layout], LESIONS[lesion], width, *group, plane.data_ptr(), size,
-                      sums.data_ptr())
+        kernel.launch(*head, *group, plane.data_ptr(), size, sums.data_ptr())
 
 
 def folded(sums: torch.Tensor, lesion: str) -> int:
@@ -312,10 +320,11 @@ def scene_parts(scene: str, view, width: int = 1920, height: int = 1080,
 SMOKE_SCENES = ("out/chip_smoke_256_v2.tpc", "out/chip_smoke_256.las")
 
 
-def parts_main(stem: str, run, doc: str, argv=None) -> int:
+def parts_main(stem: str, run, doc: str, argv=None, layout: bool = False) -> int:
     """A probe module's `main`: `run(label, parts, size, card)` on each
     `--scene`'s frame parts at `--view`, and for a `.tpc` scene first on
-    its most populated chunk alone; the card line last."""
+    its most populated chunk alone; the card line last.  With `layout`,
+    `run` also gets the parts' layout (`layout=`)."""
     import argparse
     import sys
 
@@ -330,11 +339,12 @@ def parts_main(stem: str, run, doc: str, argv=None) -> int:
         return 1
     card = card_line()
     for scene in args.scene or [p for p in SMOKE_SCENES if os.path.exists(p)]:
-        parts, size, layout = scene_parts(scene, views()[args.view])
+        parts, size, kind = scene_parts(scene, views()[args.view])
         name = f"{os.path.basename(scene)} {args.view}"
-        if layout == "chain":
-            run(f"{name} chunk", [busiest(parts, size)], size, card)
-        run(f"{name} frame's {len(parts)} parts", parts, size, card)
+        kw = {"layout": kind} if layout else {}
+        if kind == "chain":
+            run(f"{name} chunk", [busiest(parts, size)], size, card, **kw)
+        run(f"{name} frame's {len(parts)} parts", parts, size, card, **kw)
     print(card)
     return 0
 

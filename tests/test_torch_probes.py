@@ -219,17 +219,19 @@ def test_import_launches_nothing():
         assert not bad, bad
         assert probes.build.cache_info().currsize == 0
         assert probes.load.cache_info().currsize == 0
-        assert sorted(probes.PROBES) == ["pcr_probe_b1", "pcr_probe_b5", "pcr_probe_floor",
+        assert sorted(probes.PROBES) == ["pcr_probe_b1", "pcr_probe_b5", "pcr_probe_combine",
+                                         "pcr_probe_corient", "pcr_probe_floor",
                                          "pcr_probe_gather", "pcr_probe_lesion",
-                                         "pcr_probe_parity", "pcr_probe_scatter",
-                                         "pcr_probe_winsize"]
+                                         "pcr_probe_narrow", "pcr_probe_parity",
+                                         "pcr_probe_perm", "pcr_probe_pwin",
+                                         "pcr_probe_scatter", "pcr_probe_winsize"]
         assert all(k.launches == 0 for k in probes.PROBES.values())
         print("ok", len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["ok", "10"]
+    assert out.stdout.split() == ["ok", "16"]
 
 
 def test_entry_points_raise_on_cpu_tensors():
