@@ -176,7 +176,10 @@ Phases, each of which exits non-zero on failure:
     host's time; its `device_ms` is the same call
     enqueued behind a ~1 ms device spin, so the events bracket device
     work alone; for B3 and B6 `kernel_device_ms` is one launch of the
-    kernel alone into a plane filled before the spin.  B8, B9 and B10
+    kernel alone into a plane filled before the spin, and
+    `kernel_bound_ms` its bound: the stream read and 8 B written for
+    each pixel a live entry lands in (`bound_ms`, the wrapper's, writes
+    the whole plane).  B8, B9 and B10
     are reached by no method of the reference: their launches are 0.
     B12's resources: registers, shared memory per block, blocks and
     warps resident per SM, blocks per chunk and per SM; and the timed
@@ -236,6 +239,21 @@ Phases, each of which exits non-zero on failure:
     version, every deterministic count equal to its plain count,
     combine-count between the landed pixels and the groups, and
     `staged`, `u64` and `per-part` within 3% of the shipped kernel.
+    Last, `r3_matscatter.py`'s two sites and B6's six (`b6_probe_phase`),
+    on the unsorted streams of the parametric near frame, the `.wg` orbit
+    frame, the `.las` orbit part and Potree's steady parts laid end to
+    end: `r3_matscatter` (pid, key3 and key2 sorts; atomic-head and
+    store-head after the key sort, B6 after each sort, B8 and flat B3;
+    each path's sort + resolve), `r2_merge_tune` (B6's lesions),
+    `r3_kernel_floor` (its anatomy and interleaved loads), `r3_build_v2`
+    (0-5 doubling steps), `r3_merge_micro` (groups a warp, cp.async
+    rings), `r3_merge_micro2` (instruction cuts, atomics saved) and
+    `r3_rows_prefix` (the whole stream, the live entries by a boolean
+    index or `pcr_probe_compact`, or 64 and 128 rows, then the sort and
+    B6).  Every path and exact variant is bit-exact to
+    `u64_min_planes_plain`, every checksum and count equal to its plain
+    version or within its bounds, and `full` within 3% of the shipped
+    `pcr_merge_nk1`.
 The last lines are the card line, a JSON object of the kernels and
 `{"ok": true, "device": {...}}`.  Nothing of jax or of the JAX package
 is imported.
@@ -387,6 +405,18 @@ PROBE_INFO = {
     "pcr_probe_pwin": ("probe: B3's tiles per part against position tiles (r4_pwin)",
                        "pcrhpg24_tpu_torch/experiments/r4_pwin.cu",
                        "experiments/r4_pwin.py:373 (per-part baseline: :322)"),
+    "pcr_probe_heads": ("probe: run heads stored after a full-key sort (r3_matscatter)",
+                        "pcrhpg24_tpu_torch/experiments/r3_matscatter.cu",
+                        "experiments/r3_matscatter.py:237 (B6 with no suffix-min: :294)"),
+    "pcr_probe_b6": ("probe: B6's variants: stage lesions, anatomy, scan depth, groups a "
+                     "warp, cp.async rings, instruction cuts (r2_merge_tune, "
+                     "r3_kernel_floor, r3_build_v2, r3_merge_micro, r3_merge_micro2)",
+                     "pcrhpg24_tpu_torch/experiments/r2_merge_tune.cu",
+                     "experiments/r2_merge_tune.py:124 (also r3_kernel_floor.py:169, "
+                     "r3_build_v2.py:118, r3_merge_micro.py:95, r3_merge_micro2.py:289)"),
+    "pcr_probe_compact": ("probe: live entries compacted before the sort (r3_rows_prefix)",
+                          "pcrhpg24_tpu_torch/experiments/r3_rows_prefix.cu",
+                          "experiments/r3_rows_prefix.py:146"),
 }
 # cameras of the parametric scene: target (0, 0, 0) on the radius-10 sphere
 # (the app's default radius of 1000 leaves it a few pixels wide)
@@ -620,21 +650,6 @@ def build_scenes(base: str, batches: int) -> tuple[float, float]:
         os.replace(huf + ".tmp", huf)
         huf_s = time.perf_counter() - t1
     return time.perf_counter() - t0, huf_s
-
-
-def sort_by_key3(pid, dep, pay):
-    """Sort a stream by (pid, depth, payload) as u32: three stable sorts,
-    least significant key first (B8's input, `lax.sort(num_keys=3)`)."""
-    import torch
-
-    from pcrhpg24_tpu_torch.u32 import INT32_MIN
-
-    order = None
-    for k in (pay, dep, pid):
-        k = k.reshape(-1) ^ INT32_MIN  # signed order == u32 order
-        _, idx = torch.sort(k if order is None else k[order], stable=True)
-        order = idx if order is None else order[idx]
-    return tuple(x.reshape(-1)[order] for x in (pid, dep, pay))
 
 
 def lexsorted(got, keys) -> bool:
@@ -1123,6 +1138,17 @@ def b3_row(sym: str, ms: float, parts, size: int) -> dict:
                      sum(nbytes(*p) for p in parts) + 8 * size)
 
 
+def landed(pid, size: int) -> int:
+    """Pixels that the live entries (pid < size) of `pid` land in: the
+    plane words a resolve must write when the plane is filled before it."""
+    import torch
+
+    from pcrhpg24_tpu_torch.u32 import widen
+
+    q = widen(pid.reshape(-1))
+    return int(torch.unique(q[q < size]).numel())
+
+
 def probe_row(sym: str, ms: float, plain_ms: float, library_ms, moved: int) -> dict:
     """A probe kernel's row of the kernels line: 0 launches (no path
     reaches it), its bound the bytes `moved` over the card's memory
@@ -1238,6 +1264,87 @@ def merge_probe_phase(targets: list, card: str, log: str, b10_ms: float) -> list
     return rows
 
 
+def b6_probe_phase(targets: list, card: str, log: str, b6_ms: float) -> list:
+    """Phase 6b, the last of queue B: `r3_matscatter.py`'s two sites and
+    B6's six (`pcrhpg24_tpu_torch/experiments/`).  `targets`: (label,
+    unsorted stream, plane size) of the parametric near frame, the `.wg`
+    orbit frame, the `.las` orbit part and Potree 5e7's steady parts laid
+    end to end; `r3_matscatter` (sorts, then head stores, B6, B8 and flat
+    B3) runs on all four, `r2_merge_tune` (B6's lesions) on the first
+    two, `r3_kernel_floor` (its anatomy and interleaved loads),
+    `r3_build_v2` (scan depth), `r3_merge_micro` (groups a warp, cp.async
+    rings), `r3_merge_micro2` (instruction cuts) and `r3_rows_prefix`
+    (what to sort) on the first three.  Each module holds every exact
+    variant and path bit-exact to `u64_min_planes_plain`, every checksum
+    and count to its plain version or bounds, and `full` within 3% of the
+    shipped `pcr_merge_nk1` timed in turns, and raises otherwise; `b6_ms`
+    is the shipped B6's device ms, `log` the probes' nvcc log.  -> the
+    kernels line's rows of their three kernels (0 launches; the two
+    resolves' bounds count 8 B for each landed pixel, as the shipped
+    B6's)."""
+    import torch
+
+    from pcrhpg24_tpu_torch.experiments import (probes, r2_merge_tune, r3_build_v2,
+                                                r3_kernel_floor, r3_matscatter, r3_merge_micro,
+                                                r3_merge_micro2, r3_rows_prefix)
+    from pcrhpg24_tpu_torch.kernels import build
+    from pcrhpg24_tpu_torch.render.merge import dense_from_sorted_plain
+    from pcrhpg24_tpu_torch.render.raster import sort_by_pid
+
+    t0 = time.perf_counter()
+    shipped = probes.ptxas_instances(build.build()[2])
+    ship = next(r for k, r in shipped.items() if "merge_nk1_kernel" in k)
+    print(f"[build] pcr_merge_nk1 (csrc/merge.cuh's defaults): {ship['registers']} registers, "
+          f"{ship['spill_stores']} B spill stores, {ship['spill_loads']} B spill loads")
+    for args, res in probes.instance_resources(
+            r"merge_nk1_probeILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+            log).items():
+        print(f"[build] B6 variant (lesion, steps, groups, stages, load, cut, head) "
+              f"{tuple(map(int, args))}: {res['registers']} registers, {res['smem']} B static "
+              f"shared memory, {res['spill_stores']} B spill stores")
+    heads = {label: r3_matscatter.run(label, stream, size, card)
+             for label, stream, size in targets}
+    lesions = {label: r2_merge_tune.run(label, stream, size, card)
+               for label, stream, size in targets[:2]}
+    rows = {}
+    for label, stream, size in targets[:3]:
+        for module in (r3_kernel_floor, r3_build_v2, r3_merge_micro, r3_merge_micro2):
+            module.run(label, stream, size, card)
+        rows[label] = r3_rows_prefix.run(label, stream, size, card)
+    seconds = time.perf_counter() - t0
+    print(f"[gate] probes: r3_matscatter's atomic-head and store-head after the full-key sort, "
+          f"B6 on the key- and pid-sorted streams, B8 and flat B3 bit-exact vs "
+          f"u64_min_planes_plain on {len(heads)} streams, key2's order equal to key3's; B6's "
+          f"lesions, anatomy, {len(r3_build_v2.VARIANTS)} depths, "
+          f"{len(r3_merge_micro.VARIANTS)} (groups, stages) and the cuts bit-exact or equal to "
+          f"their plain checksums and counts, and full within 3% of the shipped pcr_merge_nk1 "
+          f"({b6_ms:.4f} ms device in the kernel times), on {len(rows)} streams; every "
+          f"r3_rows_prefix path bit-exact and the compaction equal to its plain version: "
+          f"{seconds:.1f} s")
+
+    (param, ps_raw, psize), (las, ls_raw, lsize) = targets[0], targets[2]
+    sp = sort_by_pid(*ps_raw)
+    ks = probes.sort_by_key2(*ls_raw)
+    live = rows[las]["live"]
+    # the planes are filled outside the timed launch: a resolve reads its
+    # stream and writes only the words of the pixels it lands in
+    heads_lib, heads_reset = probes.amin_library([ks], lsize)
+    b6_lib, b6_reset = probes.amin_library([sp], psize)
+    rows_out = [
+        probe_row("pcr_probe_heads", heads[las]["resolves"]["store-head"],
+                  probes.time_ms(lambda: dense_from_sorted_plain(*ks, lsize), 5),
+                  probes.time_ms(heads_lib, 5, heads_reset),
+                  nbytes(*ks) + 8 * landed(ks[0], lsize)),
+        probe_row("pcr_probe_b6", lesions[param]["full"], probes.plain_ms([sp], psize),
+                  probes.time_ms(b6_lib, 5, b6_reset), nbytes(*sp) + 8 * landed(sp[0], psize)),
+        probe_row("pcr_probe_compact", rows[las]["compact"], rows[las]["plain"],
+                  rows[las]["plain"], nbytes(*ls_raw) + 12 * live)]
+    print_probe_rows(rows_out, card)
+    del sp, ks, heads_lib, b6_lib
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def fetch_frame(port: int, view: dict) -> tuple[bytes, str]:
     """GET the viewer's /frame for `view` until it is not stale."""
     import urllib.request
@@ -1305,7 +1412,7 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import hqs_frame_native
     from pcrhpg24_tpu_torch.render.methods.loop_las import resolve_indexed
     from pcrhpg24_tpu_torch.render.methods.loop_nodes_compressed import (
-        ComputeLoopNodesCompressed, WgData, render_wg)
+        ComputeLoopNodesCompressed, WgData, render_wg, wg_points)
     from pcrhpg24_tpu_torch.render.methods.parametric import (
         N_U, N_V, Parametric, render_parametric, surface_points)
     from pcrhpg24_tpu_torch.render.project import project_batches, project_plain
@@ -1865,6 +1972,7 @@ def main(argv=None) -> int:
         live = int((sp[0] < W * H).sum())
         if name == "near":
             shapes["param"] = sp
+            shapes["param raw"] = (pid, depth, rgba)
             part = tuple(x[:cut] for x in sp)
             same_planes(dense_from_sorted_nk1(*part, W * H),
                         u64_min_planes_plain([tuple(x.cpu() for x in part)], W * H),
@@ -1883,7 +1991,7 @@ def main(argv=None) -> int:
         dense_from_sorted_nk1(*s1, size), b3, "B6 (pid-sorted) != B3 (unsorted)"))
     same_planes(dense_from_sorted_nk1(*s1, size), u64_min_planes_plain([s1], size),
                 "B6 != plain (orbit chunk)")
-    s3 = sort_by_key3(*stream)
+    s3 = probes.sort_by_key3(*stream)
     shapes["key3"] = s3
     for need_depth in (True, False):
         want = (b3[0] if need_depth else None, b3[1])
@@ -2089,6 +2197,12 @@ def main(argv=None) -> int:
         launches = {s: k.launches for s, k in build.KERNELS.items()}
         _fb_d, fb_p = render_wg(**wg.dev, transform=m.transform(rw), width=W, height=H,
                                 plain=True)
+        if name == "orbit":  # the stream B6 resolves, for the B6 probes
+            d = wg.dev
+            wpid, wdep = project_points(*wg_points(d["words"], d["bits"], d["base_bit"],
+                                                   d["bmin"], d["bmax"]), m.transform(rw), W, H)
+            shapes["wg"] = (wpid, wdep, torch.arange(wpid.numel(), dtype=torch.int32,
+                                                     device=DEVICE))
         b6_frame("wg", name, rw, launches, rw.last_image,
                  resolve_indexed(fb_p, wg.dev["colors"], W, H), wg.num_points)
         del rw, m
@@ -2398,6 +2512,19 @@ def main(argv=None) -> int:
             sp[0].data_ptr(), sp[1].data_ptr(), sp[2].data_ptr(), plane_alone.data_ptr(),
             sp[0].numel(), psize),
     }
+    # the kernel alone reads its parts and writes only the plane words its
+    # live entries land in: the plane is filled outside its events
+    alone_bound = {s: (sum(nbytes(*p) for p in parts)
+                       + 8 * landed(torch.cat([p[0].reshape(-1) for p in parts]), plane_size))
+                   / HBM_BYTES_PER_S * 1e3
+                   for s, (parts, plane_size) in (
+                       ("pcr_u64_min", ([stream], size)),
+                       ("pcr_u64_min:frame", (fparts["colour"], size)),
+                       ("pcr_u64_min:hqs", (fparts["hqs"], size)),
+                       ("pcr_u64_min_flat", (lparts, psize)),
+                       ("pcr_u64_min_flat:potree", (pparts, psize)),
+                       ("pcr_merge_nk1", ([sp], psize)))}
+    assert set(alone_bound) == set(alone)
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry
     bound_ops = {s: 32 * n for s in ("pcr_project", "pcr_project:hqs", "pcr_project:payload",
@@ -2434,13 +2561,16 @@ def main(argv=None) -> int:
             max_abs_err=max(errs[sym], errs[s]), ms=round(k_ms, 4), device_ms=round(k_dev, 4),
             kernel_device_ms=None if k_alone is None else round(k_alone, 4),
             plain_ms=round(p_ms, 4), bound_ms=round(bound_ms, 4), bound_by=bound_by,
+            kernel_bound_ms=round(alone_bound[s], 4) if s in alone_bound else None,
             library_ms=None if lib_ms is None else round(lib_ms, 4)))
         device_of[s] = k_dev
         at = timed_at.get(s, f"one orbit chunk, {n:,} entries")
         reach = (f"{results[owner]['launches'][sym]} launches in {owner[0]} {owner[1]}"
                  if owner else "reached by no method of the reference: 0 launches")
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms (device {lib_dev:.4f})"
-        kern_alone = "" if k_alone is None else f", kernel alone {k_alone:.4f}"
+        kern_alone = ("" if k_alone is None else
+                      f", kernel alone {k_alone:.4f}, its bound {alone_bound[s]:.4f} with the "
+                      f"landed words alone")
         print(f"[time] {KERNEL_INFO[s][0]}: kernel {k_ms:.4f} ms (device {k_dev:.4f}"
               f"{kern_alone}) vs "
               f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
@@ -2515,7 +2645,16 @@ def main(argv=None) -> int:
     kernels += decoder_probe_phase(orbit[1], orbit[2], card, probe_log)
     # B10's exchange probe and the rest of B3's, on the same targets
     kernels += merge_probe_phase(targets, card, probe_log, device_of["pcr_tile_sort3"])
-    del hm, hv, chunks, targets, orbit
+    # r3_matscatter's two sites and B6's six, on the streams B6 resolves
+    # (parametric, `.wg`) and on the `.las` and Potree parts as one stream
+    streams = [("parametric near", shapes["param raw"], psize),
+               (".wg orbit", shapes["wg"], psize),
+               (".las orbit part", tuple(torch.cat([p[k].reshape(-1) for p in lparts])
+                                         for k in range(3)), psize),
+               (f"Potree {potree_n / 1e6:.1f}M steady parts, end to end",
+                tuple(torch.cat([p[k].reshape(-1) for p in pparts]) for k in range(3)), psize)]
+    kernels += b6_probe_phase(streams, card, probe_log, device_of["pcr_merge_nk1"])
+    del hm, hv, chunks, targets, orbit, streams
     watch.lap("probes")
     # B12's resources, and its chunk's blocks spread evenly over the SMs
     res = kernel_resources()

@@ -71,6 +71,22 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// A thread's own 4-byte copy global -> shared (`cp.async`, sm_80+),
+// grouped by `commit`; `wait_groups<N>` returns once at most N of the
+// thread's groups are still in flight.  The copies are the thread's: it
+// may read their words after the wait with no barrier.
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Shared-memory accesses that the compiler may neither cache in registers
 // nor merge: hand-over words that other warps of the block poll.
 __device__ __forceinline__ void store_volatile(int* p, int v) {

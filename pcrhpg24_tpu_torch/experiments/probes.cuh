@@ -69,12 +69,17 @@
 // folds and adds or XORs the result into one of kSlots words (one word
 // would serialise every warp's atomic on one L2 line); the wrapper folds
 // the slots.
+//
+// At the end, for the B6 probes (`r3_matscatter.cu`, `r2_merge_tune.cu`):
+// B6's body (`csrc/merge.cuh`) with its template values as a kernel of
+// its own, its launcher, and PCR_B6_CASE.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge.cuh"
 #include "tiles.cuh"
 
 namespace probes {
@@ -639,3 +644,70 @@ int launch_b3(const void* const* pid, const void* const* dep, const void* const*
 #define PCR_B3_FORM(L, K, W, F)                                                     \
   if (layout == (L) && lesion == (K) && width == (W) && form == (F))                \
   return probes::launch_b3<L, K, W, F>(pid, dep, pay, n, count, plane, size, sums, stream)
+
+// ---- B6's variants (`csrc/merge.cuh`'s merge_nk1), for the B6 probes ----
+
+namespace b6 {
+
+// A variant as its own kernel, with the checksum words and, for a ring,
+// its shared memory.
+template <int kLesion, int kSteps, int kGroups, int kStages, int kLoad, int kCut, int kHead>
+__global__ void merge_nk1_probe(const uint32_t* __restrict__ pid,
+                                const uint32_t* __restrict__ dep,
+                                const uint32_t* __restrict__ pay,
+                                unsigned long long* __restrict__ plane, long long n,
+                                uint32_t size, unsigned int* __restrict__ sums) {
+  merge_nk1<kLesion, kSteps, kGroups, kStages, kLoad, kCut, kHead>(pid, dep, pay, plane, n,
+                                                                   size, sums);
+}
+
+// One launch of a variant over n entries (for kInterleaved, pid is the
+// (n, 4) array and dep, pay are not read); sums is kSlots x kSlotPitch
+// words, zeroed by the caller.  A ring's grid is what the card holds at
+// once: its warps walk the tiles.
+template <int kLesion, int kSteps, int kGroups, int kStages, int kLoad, int kCut, int kHead>
+int launch_probe(const void* pid, const void* dep, const void* pay, void* plane, long long n,
+                 int size, void* sums, void* stream) {
+  auto kernel = merge_nk1_probe<kLesion, kSteps, kGroups, kStages, kLoad, kCut, kHead>;
+  const long long per_block = static_cast<long long>(kThreads) * kGroups;
+  long long blocks = (n + per_block - 1) / per_block;
+  if (blocks == 0) return 0;
+  const int smem = kStages * 3 * kGroups * kThreads * 4;
+  if constexpr (kStages > 0) {
+    static bool attr_set = false;
+    if (!attr_set && smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (blocks > static_cast<long long>(sms) * per_sm) blocks = static_cast<long long>(sms) * per_sm;
+  }
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pid), static_cast<const uint32_t*>(dep),
+      static_cast<const uint32_t*>(pay), static_cast<unsigned long long*>(plane), n,
+      static_cast<uint32_t>(size), static_cast<unsigned int*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace b6
+
+// One variant as a case of a B6 probe's C entry point, whose arguments
+// are (lesion, steps, groups, stages, load, cut, head, then
+// pcr_merge_nk1's, then the checksum words): `int symbol(int lesion, int
+// steps, int groups, int stages, int load, int cut, int head, const void*
+// pid, const void* dep, const void* pay, void* plane, long long n, int
+// size, void* sums, void* stream)`.
+#define PCR_B6_CASE(K, S, G, ST, LD, C, H)                                                  \
+  if (lesion == (K) && steps == (S) && groups == (G) && stages == (ST) && load == (LD) &&  \
+      cut == (C) && head == (H))                                                            \
+  return b6::launch_probe<K, S, G, ST, LD, C, H>(pid, dep, pay, plane, n, size, sums, stream)

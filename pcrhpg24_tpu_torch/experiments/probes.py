@@ -3,8 +3,9 @@ versions of their checksums, a device timer, the frames' parts and the
 `.tpc` chunks the decoders' probes take.
 
 The probes' CUDA sources (`*.cu` beside this file, `probes.cuh`, which
-includes the package's `csrc/tiles.cuh`, and the decoders' device code in
-`csrc/decode_native.cuh` and `csrc/decode_fixed.cuh`) build at first use, one
+includes the package's `csrc/tiles.cuh` and B6's device code in
+`csrc/merge.cuh`, and the decoders' in `csrc/decode_native.cuh` and
+`csrc/decode_fixed.cuh`) build at first use, one
 nvcc each in parallel with the package's flags (`kernels/build.py`,
 `-fmad=false`), into `build/probes/<source hash>/libpcr_probes.so`,
 and load with ctypes.  Each probe's C entry point is a `Kernel` of this
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import functools
 import os
+from dataclasses import dataclass
 import re
 import statistics
 import subprocess
@@ -25,15 +27,15 @@ from pathlib import Path
 
 import torch
 
-from ..kernels.build import (BUILD_ROOT, CSRC, MAX_PARTS, I, Kernel, P, check_cuda,
+from ..kernels.build import (BUILD_ROOT, CSRC, MAX_PARTS, I, Kernel, L, P, check_cuda,
                              compile_library, open_library, part_groups)
 from ..render.raster import u64_min_planes_plain
-from ..u32 import INT64_MAX, MASK32, biased_key, widen
+from ..u32 import INT32_MIN, INT64_MAX, MASK32, biased_key, unbias_key, widen
 from ..utils.devtime import SPIN_CYCLES
 
 HERE = Path(__file__).resolve().parent
 # the package's headers the probes include (`-I csrc`)
-HEADERS = ("tiles.cuh", "async_copy.cuh", "decode_native.cuh", "decode_fixed.cuh")
+HEADERS = ("tiles.cuh", "async_copy.cuh", "decode_native.cuh", "decode_fixed.cuh", "merge.cuh")
 PROBES: dict[str, Kernel] = {}  # the probes' kernels, by C symbol
 
 # b3_probe's template values (`probes.cuh`)
@@ -46,7 +48,7 @@ LESIONS = {"full": 0, "atomic-all": 1, "no-atomic": 2, "floor": 3, "no-load": 4,
 # once, or 8 a pass), position tiles
 FORMS = {"staged": 0, "rowload": 1, "shfl": 2, "position": 3, "rowload-8": 4, "shfl-8": 5}
 SHIPPED_WIDTH = {"chain": 16, "flat": 8}  # chain tile columns, flat columns a pass
-XOR_FOLDS = ("floor", "noop")  # the other checksums add
+XOR_FOLDS = ("floor", "noop", "read-only", "grid")  # the other checksums add
 SLOTS, SLOT_PITCH = 32, 32  # the checksum words
 ROW = 1024  # entries of a chain row (`tiles::kRow`)
 FLAT_TILE = 512  # entries of a flat tile
@@ -445,3 +447,303 @@ def tpc_chunk(scene: str, view: str = "orbit", width: int = 1920, height: int = 
     chunk = chunk_args(a, sl)
     Runtime.clear()
     return chunk, f"{os.path.basename(scene)} {view} chunk {sl.start // (sl.stop - sl.start)}"
+
+
+# ---- B6's variants (`csrc/merge.cuh`), their plain versions, the sorts ----
+
+B6_LESIONS = {"full": 0, "no-atomic": 1, "read-only": 2, "grid": 3, "count": 4}
+B6_LOADS = {"arrays": 0, "interleaved": 1}
+B6_CUTS = {"uniform": 1, "distinct": 2, "early": 4, "gather-first": 8}
+B6_HEADS = {"warp": 0, "run": 1}
+# lesion, steps, groups, stages, load, cut, head; pcr_merge_nk1's; the sums
+B6_ARGS = [I, I, I, I, I, I, I, P, P, P, P, L, I, P]
+SHIPPED_TOLERANCE = 0.03  # a variant that restates a shipped kernel, same call
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet: the bounds' rate
+
+
+@dataclass(frozen=True)
+class B6:
+    """One variant of B6's body: `csrc/merge.cuh`'s template values by
+    name.  The defaults are the shipped kernel; `steps=0` is no scan."""
+
+    lesion: str = "full"
+    steps: int = 5
+    groups: int = 1
+    stages: int = 0
+    load: str = "arrays"
+    cuts: tuple = ()
+    head: str = "warp"
+
+    def args(self) -> list:
+        return [B6_LESIONS[self.lesion], self.steps, self.groups, self.stages,
+                B6_LOADS[self.load], sum(B6_CUTS[c] for c in self.cuts), B6_HEADS[self.head]]
+
+
+def launch_b6(kernel: Kernel, variant: B6, stream, size: int, plane: torch.Tensor,
+              sums: torch.Tensor) -> None:
+    """One launch of `variant` over `stream`, int32 CUDA tensors: (pid,
+    dep, pay) of one length, or for the interleaved load the one (n, 4)
+    array of `interleave`; into `plane` (`key_plane`) and the checksum
+    words `sums`."""
+    check_cuda("plane", plane, torch.int64, (size,))
+    check_cuda("sums", sums, torch.int32, (SLOTS * SLOT_PITCH,))
+    if variant.load == "interleaved":
+        (rows,) = stream
+        check_cuda("rows", rows, torch.int32, (rows.shape[0], 4))
+        if rows.data_ptr() % 16:
+            raise ValueError("the interleaved rows must start on a 16-byte boundary")
+        ptrs, n = [rows.data_ptr()] * 3, rows.shape[0]
+    else:
+        pid = stream[0]
+        for name, t in zip(("pid", "dep", "pay"), stream):
+            check_cuda(name, t, torch.int32, (pid.numel(),))
+        ptrs, n = [t.data_ptr() for t in stream], pid.numel()
+    kernel.launch(*variant.args(), *ptrs, plane.data_ptr(), n, size, sums.data_ptr())
+
+
+def interleave(stream) -> torch.Tensor:
+    """(pid, dep, pay) -> the (n, 4) int32 rows (pid, dep, pay, 0) of the
+    interleaved load."""
+    pid, dep, pay = (t.reshape(-1) for t in stream)
+    return torch.stack([pid, dep, pay, torch.zeros_like(pid)], 1).contiguous()
+
+
+def sort_by_key3(pid, dep, pay):
+    """Sort a stream by (pid, depth, payload) as u32: three stable sorts,
+    least significant key first (B8's input, `lax.sort(num_keys=3)`)."""
+    order = None
+    for k in (pay, dep, pid):
+        k = k.reshape(-1) ^ INT32_MIN  # signed order == u32 order
+        _, idx = torch.sort(k if order is None else k[order], stable=True)
+        order = idx if order is None else order[idx]
+    return tuple(x.reshape(-1)[order] for x in (pid, dep, pay))
+
+
+def sort_by_key2(pid, dep, pay):
+    """The order of `sort_by_key3` in two stable sorts: by the biased u64
+    key (depth << 32 | payload), then by pid as u32."""
+    _, order = torch.sort(biased_key(dep.reshape(-1), pay.reshape(-1)), stable=True)
+    _, idx = torch.sort(pid.reshape(-1)[order] ^ INT32_MIN, stable=True)
+    order = order[idx]
+    return tuple(x.reshape(-1)[order] for x in (pid, dep, pay))
+
+
+def warp_segments(pid: torch.Tensor):
+    """B6's warp-local run segments of a stream: maximal stretches of one
+    pid within an aligned warp of 32 entries -> (each entry's pid as u32
+    (int64), its position in its segment, whether it heads one)."""
+    q = widen(pid.reshape(-1))
+    e = torch.arange(q.numel(), device=q.device)
+    head = (e % 32) == 0
+    head[1:] |= q[1:] != q[:-1]
+    start = torch.cummax(torch.where(head, e, torch.zeros_like(e)), 0).values
+    return q, e - start, head
+
+
+def warp_runs_plain(pid: torch.Tensor, size: int) -> int:
+    """The stream's longest segment of a live pid (< size) within an
+    aligned warp of 32 entries: B6's scan is exact at any depth whose
+    2**steps covers it (the card's `pm._runs_bounded`, pallas_merge.py:662)."""
+    q, pos, _head = warp_segments(pid)
+    live = q < size
+    return int(pos[live].max()) + 1 if bool(live.any()) else 0
+
+
+def steps_needed(runs: int) -> int:
+    """The fewest doubling steps whose 2**steps covers `runs` entries."""
+    return max(runs - 1, 0).bit_length()
+
+
+def truncated_plain(stream, size: int, steps: int):
+    """The planes of B6 at `steps` doubling steps: each warp-local head
+    takes the min of the first 2**steps entries of its segment, and the
+    heads min-combine per pixel."""
+    pid, dep, pay = (t.reshape(-1) for t in stream)
+    _q, pos, _head = warp_segments(pid)
+    kept = torch.where(pos < (1 << steps), pid, torch.full_like(pid, -1))  # -1: all ones
+    return u64_min_planes_plain([(kept, dep, pay)], size)
+
+
+def heads_fold_plain(stream, size: int) -> int:
+    """The no-atomic lesion's checksum: over the live warp-local heads,
+    the sum (mod 2**32) of hi ^ lo of their segment's min key."""
+    pid, dep, pay = (t.reshape(-1) for t in stream)
+    q, _pos, head = warp_segments(pid)
+    seg = torch.cumsum(head.to(torch.int64), 0) - 1
+    nseg = int(seg[-1]) + 1 if seg.numel() else 0
+    best = torch.full((nseg,), INT64_MAX, dtype=torch.int64, device=q.device)
+    best.scatter_reduce_(0, seg, biased_key(dep, pay), reduce="amin")
+    key = unbias_key(best[seg[head & (q < size)]])
+    return int(((key >> 32) ^ key).remainder(2**32).sum()) & MASK32
+
+
+def read_plain(stream) -> int:
+    """The read-only lesion's checksum: XOR of every pid ^ dep ^ pay."""
+    pid, dep, pay = (t.reshape(-1) for t in stream)
+    return xor_reduce(pid ^ dep ^ pay)
+
+
+def grid_plain(n: int) -> int:
+    """The grid lesion's checksum: XOR of the entry indices 0 .. n - 1."""
+    if n == 0:
+        return 0
+    m = n - 1
+    return (m, 1, m + 1, 0)[m % 4] & MASK32
+
+
+def count_plain(stream, size: int) -> int:
+    """The count lesion's atomics with no cut: one for each live warp-local
+    head."""
+    q, _pos, head = warp_segments(stream[0])
+    return int((head & (q < size)).sum())
+
+
+def warp_shapes(stream, size: int) -> dict:
+    """What B6's cuts key on, per aligned warp of 32 entries: warps that
+    are one run ("uniform"), warps whose lanes all head a segment
+    ("distinct"), and all warps; and the segments' longest live run.  The
+    lanes past the stream's end hold pid all ones, as in the kernel."""
+    pid = stream[0].reshape(-1)
+    pad = (-pid.numel()) % 32
+    _q, _pos, head = warp_segments(torch.cat([pid, pid.new_full((pad,), -1)]))
+    heads = head.reshape(-1, 32).sum(1)
+    return dict(warps=heads.numel(), uniform=int((heads == 1).sum()),
+                distinct=int((heads == 32).sum()), runs=warp_runs_plain(stream[0], size))
+
+
+def b6_alone(stream, size: int, plane: torch.Tensor | None = None):
+    """The shipped B6 (`pcr_merge_nk1`) as one launch alone over `stream`
+    into `plane` (a new one if None) -> (the launch, its plane): time it
+    with `plane.fill_(-1)` as the setup."""
+    from ..render.merge import MERGE_NK1
+
+    pid, dep, pay = stream
+    if plane is None:
+        plane = torch.full((size,), -1, dtype=torch.int64, device=pid.device)
+    return (lambda: MERGE_NK1.launch(pid.data_ptr(), dep.data_ptr(), pay.data_ptr(),
+                                     plane.data_ptr(), pid.numel(), size)), plane
+
+
+def run_b6(stem: str, kernel: Kernel, label: str, stream, size: int, variants: dict,
+           expect: dict, reps: int = 20, inputs: dict | None = None) -> dict:
+    """Launch each of `variants` ({name: B6}) once on `stream` (pid-sorted,
+    int32 CUDA tensors) and hold it to `expect[name]`: a pair of planes
+    bit for bit, a u32 checksum, or a (least, most) pair of ints that a
+    count depending on the order warps run in must lie between (both
+    included); `inputs[name]` replaces the stream of
+    a variant that reads another form of it.  Then time each, one launch
+    alone (device ms, median of `reps`, from an EMPTY plane), and `full`,
+    if present, in turns with the shipped `pcr_merge_nk1`.  Raises on a
+    mismatch or if `full` is more than 3% off the shipped kernel.
+    -> {name: ms, "shipped": ms (with full), name + " sum": checksum}."""
+    from ..render.raster import key_views
+
+    require_cuda([stream])
+    device = stream[0].device
+    inputs = inputs or {}
+    plane = torch.full((size,), -1, dtype=torch.int64, device=device)
+    sums = new_sums(device)
+
+    def reset():
+        plane.fill_(-1)
+        sums.zero_()
+
+    def launch(name):
+        return lambda: launch_b6(kernel, variants[name], inputs.get(name, stream), size,
+                                 plane, sums)
+
+    out = {}
+    for name, want in expect.items():
+        reset()
+        launch(name)()
+        if isinstance(want, int) or isinstance(want[0], int):
+            got = folded(sums, variants[name].lesion)
+            out[f"{name} sum"] = got
+            if got != want if isinstance(want, int) else not want[0] <= got <= want[1]:
+                raise AssertionError(f"{stem} {name} on {label}: checksum {got} is not the "
+                                     f"plain version's {want}")
+        elif not all(torch.equal(g, w) for g, w in zip(key_views(plane), want)):
+            raise AssertionError(f"{stem} {name} on {label} != its plain version")
+    for name in variants:
+        if name != "full":
+            out[name] = time_ms(launch(name), reps, reset)
+    if "full" in variants:
+        # one plane for both: a second 16.6 MB plane filled beside it would
+        # leave one of the two partly out of L2
+        shipped, _plane = b6_alone(stream, size, plane)
+        full, ship = paired_ms([launch("full"), shipped], reps, reset)
+        out["full"], out["shipped"] = statistics.median(full), statistics.median(ship)
+        off = out["full"] / out["shipped"] - 1
+        if abs(off) > SHIPPED_TOLERANCE:
+            raise AssertionError(f"{stem} full on {label}: {out['full']:.4f} ms is {off:+.1%} "
+                                 f"off the shipped kernel's {out['shipped']:.4f}")
+    return out
+
+
+def stream_bytes(stream) -> int:
+    return sum(t.numel() * t.element_size() for t in stream)
+
+
+def b6_streams(scenes, width: int = 1920, height: int = 1080, device: str = "cuda") -> list:
+    """The unsorted (pid, depth, payload) streams B6's probes take, one for
+    each of `scenes` -> [(label, stream, plane size)]: "parametric" is the
+    sphere at the near camera; a `.wg` file its orbit frame; a `.las` file
+    or Potree directory its orbit or steady parts (`scene_parts`) laid end
+    to end as one stream.  The cameras are `tools/profile_frame.VIEWS`',
+    the ones `chip_smoke.py` renders."""
+    from ..engine.renderer import Renderer
+    from ..render.methods.loop_nodes_compressed import WgData, wg_points
+    from ..render.methods.parametric import Parametric, surface_points
+    from ..render.raster import project_points
+    from ..tools.profile_frame import VIEWS
+
+    out = []
+    size = width * height
+    for scene in scenes:
+        r = Renderer(width, height, device)
+        if scene == "parametric":
+            r.apply_setting(VIEWS["near"])
+            r.controls_update()
+            m = Parametric(r)
+            fx, fy, fz, rgba = surface_points(m.surface, r.device)
+            pid, dep = project_points(fx, fy, fz, m.transform(r), width, height)
+            out.append(("parametric near", (pid, dep, rgba), size))
+        elif scene.endswith(".wg"):
+            r.apply_setting(VIEWS["orbit"])
+            r.controls_update()
+            d = WgData.create(scene, device).wait_loaded().dev
+            wvp = torch.from_numpy(r.camera.view_proj().astype("float32")).to(device)
+            pid, dep = project_points(*wg_points(d["words"], d["bits"], d["base_bit"],
+                                                 d["bmin"], d["bmax"]), wvp, width, height)
+            pay = torch.arange(pid.numel(), dtype=torch.int32, device=device)
+            out.append((f"{os.path.basename(scene)} orbit", (pid, dep, pay), size))
+        else:
+            view = "orbit" if scene.endswith(".las") else "steady"
+            parts, size_, _layout = scene_parts(scene, views()[view], width, height, device)
+            stream = tuple(torch.cat([p[k].reshape(-1) for p in parts]) for k in range(3))
+            out.append((f"{os.path.basename(scene.rstrip('/'))} {view}", stream, size_))
+    return out
+
+
+def b6_main(stem: str, run, doc: str, argv=None, default=("parametric",)) -> int:
+    """A B6 probe module's `main`: `run(label, stream, size, card)` on each
+    `--scene`'s stream (`b6_streams`); the card line last."""
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("--scene", action="append", default=None,
+                    help="'parametric', a .wg, a .las or a Potree directory (repeatable; "
+                         "default: parametric and the smoke's .wg and .las under out/)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print(f"{stem}: no card", file=sys.stderr)
+        return 1
+    card = card_line()
+    scenes = args.scene or [*default, *(p for p in ("out/chip_smoke_256.wg",
+                                                     "out/chip_smoke_256.las")
+                                        if os.path.exists(p))]
+    for label, stream, size in b6_streams(scenes):
+        run(label, stream, size, card)
+    print(card)
+    return 0

@@ -219,9 +219,11 @@ def test_import_launches_nothing():
         assert not bad, bad
         assert probes.build.cache_info().currsize == 0
         assert probes.load.cache_info().currsize == 0
-        assert sorted(probes.PROBES) == ["pcr_probe_b1", "pcr_probe_b5", "pcr_probe_combine",
-                                         "pcr_probe_corient", "pcr_probe_floor",
-                                         "pcr_probe_gather", "pcr_probe_lesion",
+        assert sorted(probes.PROBES) == ["pcr_probe_b1", "pcr_probe_b5", "pcr_probe_b6",
+                                         "pcr_probe_combine",
+                                         "pcr_probe_compact", "pcr_probe_corient",
+                                         "pcr_probe_floor", "pcr_probe_gather",
+                                         "pcr_probe_heads", "pcr_probe_lesion",
                                          "pcr_probe_narrow", "pcr_probe_parity",
                                          "pcr_probe_perm", "pcr_probe_pwin",
                                          "pcr_probe_scatter", "pcr_probe_winsize"]
@@ -231,7 +233,7 @@ def test_import_launches_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["ok", "16"]
+    assert out.stdout.split() == ["ok", "23"]
 
 
 def test_entry_points_raise_on_cpu_tensors():
