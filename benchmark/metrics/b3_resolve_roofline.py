@@ -1,0 +1,12 @@
+"""B3 in the chain layout (`csrc/raster.cu`): percent of its memory roofline a
+frame."""
+
+from benchmark import readers
+
+UNIT = "%"
+LAYER = "kernels: B3 resolve"
+MOVES = "points_per_s.tpc"
+
+
+def read(rec):
+    return readers.roofline(rec, "pcr_u64_min")
