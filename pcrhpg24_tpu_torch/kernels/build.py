@@ -17,7 +17,8 @@ Every C entry point takes its pointers and the stream as `void*`, the
 rest as `int` (a count as `long long`), and returns `cudaGetLastError()`
 after its launch;
 `Kernel.launch` raises if that is not 0 and counts the launch, inside a
-`torch.profiler` range named by the C symbol (`pcr_*`).
+`torch.profiler` range named by the C symbol (`pcr_*`) while a profiler
+collects (`engine/timing.span`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..engine import timing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -168,7 +171,7 @@ class Kernel:
         fn.restype = ctypes.c_int
         fn.argtypes = [*self.argtypes, P]  # stream last
         # the symbol names the launch in a torch.profiler trace
-        with torch.profiler.record_function(self.symbol):
+        with timing.span(self.symbol):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             msg = lib.pcr_error_string(err).decode()

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ...constants import POINTS_PER_THREAD
+from ...engine import timing
 from ...engine.debug import Debug
 from ..camera import batch_translations, frame_setup_device
 from ..decode_fixed import decode_fixed_batches, decode_fixed_plain
@@ -65,7 +66,9 @@ def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
     index or clamped LOD count (B2's batch-payload mode).  `plain=True` runs every
     stage's plain torch version on whatever device the tensors are on
     (the gate the kernels are held to); otherwise the stages dispatch on
-    the tensors' device.
+    the tensors' device.  While tracing: spans `tpc.live_wait` (the
+    live-chunk read) and `tpc.chunk` (each live chunk's decode and
+    projection), and the counter `tpc.live_chunks`.
     """
     if fmt == "fixed":
         keys = ("widths", "streams", "ptrs", "starts")
@@ -92,14 +95,19 @@ def frame_streams(dev, frame_params, tb, scale, width: int, height: int,
     # live-chunk skip: a chunk with no visible batch launches nothing.
     # The host reads which chunks are live (one small device->host copy).
     live = (lod_n[: nchunks * CHUNK].reshape(nchunks, CHUNK) > 0).any(dim=1)
+    with timing.span("tpc.live_wait"):
+        chunks = torch.nonzero(live).flatten().tolist()
+    timing.count("tpc.live_chunks", len(chunks))
     parts = []
-    for c in torch.nonzero(live).flatten().tolist():
+    for c in chunks:
         sl = slice(c * CHUNK, (c + 1) * CHUNK)
-        coords = decode(*(dev[k][sl] for k in keys), points=points)
-        parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl],
-                             tb[sl], lod_n[sl], frame12, width, height,
-                             points=points, collapse=collapse,
-                             payload=batch_payload(mode, sl, lod_n), color_fmt=color_fmt))
+        with timing.span("tpc.chunk"):
+            coords = decode(*(dev[k][sl] for k in keys), points=points)
+            parts.append(project(coords, dev["colors_k"][sl], dev["anchor"][sl],
+                                 tb[sl], lod_n[sl], frame12, width, height,
+                                 points=points, collapse=collapse,
+                                 payload=batch_payload(mode, sl, lod_n),
+                                 color_fmt=color_fmt))
     return parts, size, lod_n.device
 
 
@@ -150,37 +158,39 @@ class HuffmanTpu(HuffmanMemIter):
 
         One host -> device copy: the 40 frame params and the (B, 4)
         per-batch translations (computed on the host in f64, the
-        reference's close-up precision path) ride one packed array.
+        reference's close-up precision path) ride one packed array.  A
+        span `tpc.frame_args` while tracing.
         """
-        las = self.las
-        cam = renderer.camera
-        fp = np.zeros(40, np.float32)
-        fp[0:16] = cam.view().astype(np.float32).reshape(-1)
-        fp[16:22] = cam.proj_params().astype(np.float32)
-        fp[22] = Debug.lod
-        fp[23] = float(las.num_batches_loaded)
-        fp[24:40] = (cam.proj() @ cam.view()).astype(np.float32).reshape(-1)
-        # LOD bucket: decode only ceil(max_lod/16)*16 points per chain
-        _, lod_full = self.frame_setup(renderer)
-        points = max(16, -(-int(lod_full.max()) // 16) * 16)
-        tb = batch_translations(
-            cam.proj() @ cam.view(), las.anchor_i[: las.dev["anchor"].shape[0]],
-            las.scale, las.offset, las.las_min,
-        )
-        packed = torch.from_numpy(
-            np.concatenate([fp, np.asarray(tb, np.float32).ravel()])
-        ).to(las.device)
-        if self._scale is None:
-            self._scale = torch.tensor(np.asarray(las.scale, np.float32),
-                                       device=las.device)
-        return dict(
-            dev=las.dev, frame_params=packed[:40], tb=packed[40:].reshape(-1, 4),
-            scale=self._scale, width=renderer.width, height=renderer.height,
-            nchunks=-(-las.num_batches // CHUNK),
-            cull=Debug.frustum_culling_enabled and Debug.update_frustum,
-            points=points, fmt="fixed" if las.version == 2 else "tbatch",
-            color_fmt=las.color_fmt,
-        )
+        with timing.span("tpc.frame_args"):
+            las = self.las
+            cam = renderer.camera
+            fp = np.zeros(40, np.float32)
+            fp[0:16] = cam.view().astype(np.float32).reshape(-1)
+            fp[16:22] = cam.proj_params().astype(np.float32)
+            fp[22] = Debug.lod
+            fp[23] = float(las.num_batches_loaded)
+            fp[24:40] = (cam.proj() @ cam.view()).astype(np.float32).reshape(-1)
+            # LOD bucket: decode only ceil(max_lod/16)*16 points per chain
+            _, lod_full = self.frame_setup(renderer)
+            points = max(16, -(-int(lod_full.max()) // 16) * 16)
+            tb = batch_translations(
+                cam.proj() @ cam.view(), las.anchor_i[: las.dev["anchor"].shape[0]],
+                las.scale, las.offset, las.las_min,
+            )
+            packed = torch.from_numpy(
+                np.concatenate([fp, np.asarray(tb, np.float32).ravel()])
+            ).to(las.device)
+            if self._scale is None:
+                self._scale = torch.tensor(np.asarray(las.scale, np.float32),
+                                           device=las.device)
+            return dict(
+                dev=las.dev, frame_params=packed[:40], tb=packed[40:].reshape(-1, 4),
+                scale=self._scale, width=renderer.width, height=renderer.height,
+                nchunks=-(-las.num_batches // CHUNK),
+                cull=Debug.frustum_culling_enabled and Debug.update_frustum,
+                points=points, fmt="fixed" if las.version == 2 else "tbatch",
+                color_fmt=las.color_fmt,
+            )
 
     def frame_mode(self, renderer) -> dict:
         """The rest of `render_frame_native`'s arguments: the frame mode

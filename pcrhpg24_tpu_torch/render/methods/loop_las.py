@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ...constants import POINTS_PER_WORKGROUP, RENDER_CHUNK_BATCHES
+from ...engine import timing
 from ...engine.debug import Debug
 from ...engine.method import Method, Runtime
 from ...u32 import widen
@@ -59,6 +60,8 @@ CHUNK_PTS = RENDER_CHUNK_BATCHES * POINTS_PER_WORKGROUP
 STEPS_30BIT = float(1 << 30)
 STEPS_10BIT = 1024.0
 MASK = 1023
+# 10-10-10 planes a batch's points read, by precision level: 30, 20, 10 bits
+PLANES = np.array([3, 2, 1, 1, 1])
 
 
 def precision_levels(view, proj, bbox_min, bbox_max, width, height):
@@ -185,24 +188,25 @@ def resolve_parts(parts, rgba, width: int, height: int, hqs: bool = False,
     and the depth plane as its prepass, then divides (`resolve_hqs`).
     The parts are one entry a point in file order: both kernels take
     them in their flat layout.  `plain=True` runs the plain versions
-    instead of B3 and B4."""
-    size = width * height
-    if not parts:
-        empty = torch.full((size,), EMPTY, dtype=torch.int32, device=rgba.device)
-        if hqs:
-            return (empty, torch.zeros_like(empty),
-                    torch.full((height, width), BACKGROUND, dtype=torch.int32,
-                               device=rgba.device))
-        return empty, empty, resolve(empty, width, height)
-    fb_d, fb_p = (u64_min_planes_plain(parts, size) if plain
-                  else u64_min_planes(parts, size, layout="flat"))
-    if not hqs:
-        return fb_d, fb_p, resolve_indexed(fb_p, rgba, width, height)
-    fb_d = fb_d.contiguous()  # B4 reads a contiguous plane
-    cparts = colour_parts(parts, rgba)
-    acc = (hqs_sums_plain(cparts, fb_d, size) if plain
-           else hqs_sums(cparts, fb_d, size, layout="flat"))
-    return fb_d, acc[3], resolve_hqs(*acc, width, height)
+    instead of B3 and B4.  A span `las.resolve` while tracing."""
+    with timing.span("las.resolve"):
+        size = width * height
+        if not parts:
+            empty = torch.full((size,), EMPTY, dtype=torch.int32, device=rgba.device)
+            if hqs:
+                return (empty, torch.zeros_like(empty),
+                        torch.full((height, width), BACKGROUND, dtype=torch.int32,
+                                   device=rgba.device))
+            return empty, empty, resolve(empty, width, height)
+        fb_d, fb_p = (u64_min_planes_plain(parts, size) if plain
+                      else u64_min_planes(parts, size, layout="flat"))
+        if not hqs:
+            return fb_d, fb_p, resolve_indexed(fb_p, rgba, width, height)
+        fb_d = fb_d.contiguous()  # B4 reads a contiguous plane
+        cparts = colour_parts(parts, rgba)
+        acc = (hqs_sums_plain(cparts, fb_d, size) if plain
+               else hqs_sums(cparts, fb_d, size, layout="flat"))
+        return fb_d, acc[3], resolve_hqs(*acc, width, height)
 
 
 def loop_las_parts(dev, level, vis, bmin, bmax, transform, batches: int, width: int,
@@ -211,7 +215,8 @@ def loop_las_parts(dev, level, vis, bmin, bmax, transform, batches: int, width: 
     `batches` batches (`raster_chunk_101010`, `loop_las.py:63-74`).
 
     dev: `ComputeLasData.dev`; level (B,) int32, vis (B,) bool, bmin and
-    bmax (B, 3) f32: per loaded batch; transform (4, 4) f32 wvp."""
+    bmax (B, 3) f32: per loaded batch; transform (4, 4) f32 wvp.  Each
+    chunk's projection is a span `las.project` while tracing."""
     P = POINTS_PER_WORKGROUP
     parts = []
     for s in range(0, batches * P, CHUNK_PTS):
@@ -219,9 +224,10 @@ def loop_las_parts(dev, level, vis, bmin, bmax, transform, batches: int, width: 
         sl = slice(s, b1 * P)
         planes = [dev[k][sl].view(b1 - b0, P) for k in ("xyz4", "xyz8", "xyz12")]
         per_axis = lambda box: tuple(box[b0:b1, k:k + 1] for k in range(3))
-        parts.append(project_101010(*planes, level[b0:b1, None], per_axis(bmin),
-                                    per_axis(bmax), transform, s, width, height,
-                                    vis[b0:b1, None]))
+        with timing.span("las.project"):
+            parts.append(project_101010(*planes, level[b0:b1, None], per_axis(bmin),
+                                        per_axis(bmax), transform, s, width, height,
+                                        vis[b0:b1, None]))
     return parts
 
 
@@ -282,29 +288,36 @@ class ComputeLoopLas(LasMethod):
     def frame_args(self, renderer) -> dict:
         """Keyword arguments of `loop_las_frame`: the host's cull and
         precision levels of the loaded batches, their boxes and the wvp
-        in one packed host -> device copy."""
-        las = self.las
-        W, H = renderer.width, renderer.height
-        cam = renderer.camera
-        view, proj = cam.view(), cam.proj()
-        B = las.num_batches_loaded
-        bmin, bmax = las.bbox_min[:B], las.bbox_max[:B]
-        if Debug.frustum_culling_enabled and Debug.update_frustum:
-            vis = batches_in_frustum(frustum_planes(proj @ view), bmin, bmax)
-        else:
-            vis = np.ones(B, bool)
-        level = precision_levels(view, proj, bmin, bmax, W, H)
-        packed = torch.from_numpy(np.concatenate([
-            (proj @ view).astype(np.float32).ravel(), bmin.ravel(), bmax.ravel(),
-            level.astype(np.int32).view(np.float32),
-            vis.astype(np.int32).view(np.float32)])).to(las.device)
-        return dict(
-            dev=las.dev, transform=packed[:16].reshape(4, 4),
-            bmin=packed[16:16 + 3 * B].reshape(B, 3),
-            bmax=packed[16 + 3 * B:16 + 6 * B].reshape(B, 3),
-            level=packed[16 + 6 * B:16 + 7 * B].view(torch.int32),
-            vis=packed[16 + 7 * B:].view(torch.int32) != 0,
-            batches=B, width=W, height=H, hqs=self.HQS)
+        in one packed host -> device copy.  While tracing: a span
+        `las.frame_args`, and counters `las.batches` (the batches the
+        frame projects) and `las.planes_needed` (the 10-10-10 planes the
+        visible batches' levels read)."""
+        with timing.span("las.frame_args"):
+            las = self.las
+            W, H = renderer.width, renderer.height
+            cam = renderer.camera
+            view, proj = cam.view(), cam.proj()
+            B = las.num_batches_loaded
+            bmin, bmax = las.bbox_min[:B], las.bbox_max[:B]
+            if Debug.frustum_culling_enabled and Debug.update_frustum:
+                vis = batches_in_frustum(frustum_planes(proj @ view), bmin, bmax)
+            else:
+                vis = np.ones(B, bool)
+            level = precision_levels(view, proj, bmin, bmax, W, H)
+            if timing.tracing():
+                timing.count("las.batches", B)
+                timing.count("las.planes_needed", int(PLANES[level[vis]].sum()))
+            packed = torch.from_numpy(np.concatenate([
+                (proj @ view).astype(np.float32).ravel(), bmin.ravel(), bmax.ravel(),
+                level.astype(np.int32).view(np.float32),
+                vis.astype(np.int32).view(np.float32)])).to(las.device)
+            return dict(
+                dev=las.dev, transform=packed[:16].reshape(4, 4),
+                bmin=packed[16:16 + 3 * B].reshape(B, 3),
+                bmax=packed[16 + 3 * B:16 + 6 * B].reshape(B, 3),
+                level=packed[16 + 6 * B:16 + 7 * B].view(torch.int32),
+                vis=packed[16 + 7 * B:].view(torch.int32) != 0,
+                batches=B, width=W, height=H, hqs=self.HQS)
 
 
 class ComputeLoopLas2(ComputeLoopLas):

@@ -4,10 +4,15 @@ Renders a scene through its method for a few warm frames, then traces
 `--frames` more with CPU and CUDA activity and prints, per frame: the
 host wall time (and that of as many frames run before, without the
 profiler), the device busy time (union of the kernels' and copies'
-device intervals), the device idle share (1 - busy / wall), each device
-kernel's time and launch count, the host's self time in each torch op
-and CUDA runtime call that takes the most of it (what the host spends
-its share of the frame on), and the peak device memory.  Scenes: a
+device intervals), the device idle share (1 - busy / the wall without
+the profiler, which slows the host and not the card), the idle split
+into lead (a `renderer.frame` range's start to its first device
+interval), starved (gaps between its first and last device interval)
+and tail time, each device kernel's time and launch count, the host's
+self time in each torch op and CUDA runtime call that takes the most of
+it (what the host spends its share of the frame on), each program span
+(`engine/timing.span`: `renderer.*`, `las.*`, `tpc.*`) with its host
+and self time, each counter, and the peak device memory.  Scenes: a
 `.huffman`, `.tpc` or `.las` file, a multi-file scene, a Potree
 directory (`--node-budget D`: `Debug.node_budget`, the budgeted compact
 frame) or `parametric` through the app's methods, or a `.wg` file
@@ -28,12 +33,14 @@ the reference's does not).  Run on a host with a card:
 from __future__ import annotations
 
 import argparse
+import bisect
 import sys
 import time
 from collections import defaultdict
 
 import torch
 
+from ..engine import timing
 from ..engine.debug import Debug
 from ..engine.method import Runtime
 from ..engine.renderer import Renderer, Setting
@@ -62,6 +69,10 @@ OUTPUTS = ("colorize_chunks", "show_num_points", "colorize_overdraw", "show_boun
            "edl", "depth")
 
 
+# the program's spans (`engine/timing.span`); `pcr_*` names a kernel's launch
+PROGRAM = ("renderer.", "las.", "tpc.")
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -70,6 +81,65 @@ def busy_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def program_spans(ranges) -> dict:
+    """name -> [total, self, count] of the program's spans among the host
+    ranges (name, start, end); a span's self time is its length less
+    that of the program spans directly inside it."""
+    out = defaultdict(lambda: [0.0, 0.0, 0])
+    stack = []  # [name, start, end, children's time]
+
+    def close(name, s, e, inner):
+        total = out[name]
+        total[0] += e - s
+        total[1] += e - s - inner
+        total[2] += 1
+
+    for name, s, e in sorted((r for r in ranges if r[0].startswith(PROGRAM)),
+                             key=lambda r: (r[1], -r[2])):
+        while stack and stack[-1][2] <= s:
+            close(*stack.pop())
+        if stack:
+            stack[-1][3] += e - s
+        stack.append([name, s, e, 0.0])
+    while stack:
+        close(*stack.pop())
+    return dict(out)
+
+
+def frame_idle(frames, device) -> dict:
+    """The card's idle time in the frames' ranges (start, end), summed:
+    `lead` from a frame's start to its first device interval's start (the
+    whole frame where it has none), `starved` the gaps in the union of
+    its device intervals, `tail` from its last device end to its end;
+    `busy` that union, and `outside` the count of device intervals that
+    lie inside no frame (0 where the spans share the device's clock)."""
+    frames = sorted(frames)
+    starts = [s for s, _e in frames]
+    inside = defaultdict(list)
+    outside = 0
+    for s, e in device:
+        i = bisect.bisect_right(starts, s) - 1
+        if i >= 0 and e <= frames[i][1]:
+            inside[i].append((s, e))
+        else:
+            outside += 1
+    lead = starved = tail = busy = 0.0
+    for i, (fs, fe) in enumerate(frames):
+        iv = sorted(inside.get(i, ()))
+        if not iv:
+            lead += fe - fs
+            continue
+        lead += iv[0][0] - fs
+        end = iv[0][0]
+        for s, e in iv:
+            if s > end:
+                starved += s - end
+            busy += max(e, end) - max(s, end)
+            end = max(end, e)
+        tail += fe - end
+    return dict(lead=lead, starved=starved, tail=tail, busy=busy, outside=outside)
 
 
 def profile(scene: str, method: str | None, view: str, frames: int, width: int,
@@ -107,28 +177,41 @@ def profile(scene: str, method: str | None, view: str, frames: int, width: int,
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    timing.take_counters()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         r.loop(m.update, m.render, frames=frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    counters = timing.take_counters()["counters"]
     kernels = defaultdict(lambda: [0.0, 0])
-    intervals = []
+    intervals, ranges = [], []
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
         s, t = e.time_range.start, e.time_range.end
-        intervals.append((s, t))
-        kernels[e.name][0] += (t - s) / 1e3 / frames
-        kernels[e.name][1] += 1
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            ranges.append((e.name, s, t))
+            continue
+        # a range (the program's spans, the kernels' `pcr_*` launches) laid
+        # over the device time of the work launched inside it
+        annotation = e.is_user_annotation or e.name.startswith((*PROGRAM, "pcr_"))
+        if not annotation:
+            intervals.append((s, t))
+        if not annotation or e.name.startswith("pcr_"):
+            kernels[e.name][0] += (t - s) / 1e3 / frames
+            kernels[e.name][1] += 1
     busy = busy_us(intervals) / 1e3 / frames
     host = {e.key: (e.self_cpu_time_total / 1e3 / frames, e.count / frames)
             for e in prof.key_averages() if e.self_cpu_time_total > 0}
+    idle = frame_idle([(s, t) for n, s, t in ranges if n == "renderer.frame"], intervals)
     out = dict(method=m.name, wall_ms=wall_ms, plain_wall_ms=plain_wall_ms, busy_ms=busy,
-               idle_share=1.0 - busy / wall_ms if wall_ms else float("nan"),
+               idle_share=1.0 - busy / plain_wall_ms if plain_wall_ms else float("nan"),
                peak_bytes=torch.cuda.max_memory_allocated(),
                kernels={k: (ms, n / frames) for k, (ms, n) in kernels.items()},
-               host=host)
+               host=host,
+               idle={k: v if k == "outside" else v / 1e3 / frames for k, v in idle.items()},
+               spans={k: (tot / 1e3 / frames, own / 1e3 / frames, n / frames)
+                      for k, (tot, own, n) in program_spans(ranges).items()},
+               counters={k: v / frames for k, v in counters.items()})
     if resource is not None:
         resource.unload()
     Runtime.clear()
@@ -165,10 +248,15 @@ def main(argv=None) -> int:
     print(f"[profile] {res['method']}{shown} {args.view} {args.scene}: wall "
           f"{res['wall_ms']:.3f} ms/frame (without the profiler "
           f"{res['plain_wall_ms']:.3f}), device busy {res['busy_ms']:.3f} "
-          f"ms/frame, idle share {res['idle_share']:.3f}, {launched:g} device kernels "
+          f"ms/frame, idle share {res['idle_share']:.3f} of the wall without the "
+          f"profiler, {launched:g} device kernels "
           f"and copies a frame, peak "
           f"{res['peak_bytes']:,} B ({args.frames} frames under the profiler, "
           f"{torch.cuda.get_device_name(0)})")
+    idle = res["idle"]
+    print(f"[profile] card idle in a traced frame: lead {idle['lead']:.3f} ms, starved "
+          f"{idle['starved']:.3f}, tail {idle['tail']:.3f} (busy {idle['busy']:.3f}); "
+          f"device intervals outside any frame: {idle['outside']}")
     top = sorted(res["kernels"].items(), key=lambda kv: -kv[1][0])
     rest = sum(ms for _k, (ms, _n) in top[args.top:])
     # and the port's own kernels (their profiler ranges: `pcr_*`) wherever they rank
@@ -185,6 +273,11 @@ def main(argv=None) -> int:
           f"{total:.3f} ms/frame of the {res['wall_ms']:.3f} ms wall")
     for name, (ms, n) in host[: args.top]:
         print(f"[profile]   host {ms:.3f} ms/frame, {n:g} calls/frame: {name[:90]}")
+    for name, (ms, own, n) in sorted(res["spans"].items()):
+        print(f"[profile] span {name}: host {ms:.3f} ms/frame (self {own:.3f}), "
+              f"{n:g}/frame")
+    for name, v in sorted(res["counters"].items()):
+        print(f"[profile] counter {name}: {v:g}/frame")
     return 0
 
 
