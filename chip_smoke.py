@@ -7,7 +7,7 @@ Run from the repo root on a host with one NVIDIA H100:
 
 Phases, each of which exits non-zero on failure:
  1. environment: card name and power limit, torch, CUDA, nvcc;
- 2. build: every kernel (B1-B6, B8-B10, B12) from `csrc/` with one nvcc
+ 2. build: every kernel (B1-B6, B8-B12) from `csrc/` with one nvcc
     per source, all started together, then one link;
  3. scenes: bench.py's synthetic terrain (`--batches` x 65,536 points,
     cached under out/) written by the port's own preprocessor three
@@ -106,8 +106,16 @@ Phases, each of which exits non-zero on failure:
     four 2021 variants and `2021 hqs`) at the `.tpc` paths' four views,
     and `basic` on the multi-file scene at the orbit view: B3 exactly
     once a frame, B4 exactly once an HQS frame, both in their flat
-    layout (`pcr_u64_min_flat`, `pcr_hqs_sums_flat`), and no other
-    kernel; B3 and B4 in both layouts also held against their plain
+    layout (`pcr_u64_min_flat`, `pcr_hqs_sums_flat`), B11
+    (`pcr_las_project`) exactly once a frame on `loop_las`, `loop_las2`
+    and `loop_las_hqs`, and no other kernel; B11 held against
+    `project_101010` (pid and index on every entry, depth where the pid
+    lands) on crafted frames (`crafted.las_frame`: levels 0-4 side by
+    side, culled batches, full-range plane words, 40 and 300 batches
+    and a prefix of each) and on the benchmark's
+    1,024-batch `las.orbit` scene (made by `benchmark/`'s generator and
+    writer) at three orbit frames, whose colour and HQS frames must also
+    equal their all-plain frames; B3 and B4 in both layouts also held against their plain
     versions on the `loop_las_hqs` orbit frame's parts, and the
     `[groups]` lines count the atomic sets of each layout there; the Potree scene written by the port's
     `synth_potree` (`--potree-points`, under `--potree-budget` resident
@@ -132,7 +140,7 @@ Phases, each of which exits non-zero on failure:
     `--show-num-points`, `--colorize-overdraw`, `--show-bounding-box`,
     `--edl` and `--depth FILE`, and `--edl` and `--depth FILE` on the
     `.las` scene's `loop_las` at the orbit view: B2 and the decoder
-    launched (not on `loop_las`), B3 once a
+    launched (on `loop_las`, B11), B3 once a
     frame (none in `huffman_tpu`'s overdraw frame, which counts entries
     instead), the image and the planes left in `last_fb` bit-exact
     against the same frame built from the plain versions, the depth file
@@ -166,9 +174,13 @@ Phases, each of which exits non-zero on failure:
     chain layout's kernel on the same parts; the flat layout's kernels on
     the chain rows' parts (orbit chunk, the frame's parts), held to the
     chain kernels' planes; `index_add_` (the B4 rows' library call) adds
-    the accepted entries only, the accept test left out of its time; the device
-    time of the `.las` projections (torch ops) of `loop_las`, `basic`
-    and `2021 early-z` at the orbit view; B4's and B3's
+    the accepted entries only, the accept test left out of its time; B11
+    over the benchmark's `las.orbit` frame 0 (its kernel alone: one launch
+    into outputs allocated before; its bound: 12 B a point and the plane
+    words the visible levels read), and on the 300-batch crafted frame
+    (a `[time] B11` line); the device time of the `.las` projections
+    (B11 on `loop_las`, torch ops on `basic` and `2021 early-z`) at the
+    orbit view; B4's and B3's
     planes handed on as
     strided views against a contiguous split, through their consumers.
     Each kernel's `ms` brackets the wrapper call as the host enqueues
@@ -348,6 +360,11 @@ KERNEL_INFO = {  # C symbol -> (name, source, TPU kernel it replaces)
                                  "methods/loop_nodes.py:361)"),
     "pcr_decode_native": ("B5 tbatch decode", "pcrhpg24_tpu_torch/csrc/decode_native.cu",
                           "pcrhpg24_tpu/render/pallas_decode.py:55"),
+    # no Pallas counterpart: the reference projects `.las` points in XLA
+    "pcr_las_project": ("B11 .las 10-10-10 unpack and projection, one loop_las frame",
+                        "pcrhpg24_tpu_torch/csrc/las_project.cu",
+                        "pcrhpg24_tpu/render/methods/loop_las.py:225 (XLA _project_101010, "
+                        "no pallas_call)"),
     # B6' (pallas_merge.py:278) is the same function: this kernel serves both
     "pcr_merge_nk1": ("B6/B6' pid-sorted u64-min", "pcrhpg24_tpu_torch/csrc/merge.cu",
                       "pcrhpg24_tpu/render/pallas_merge.py:362"),
@@ -446,11 +463,16 @@ MAIN_PATHS = [
                                                  ("hqs", "huffman_tpu_hqs"))),
 ]
 # the `.las` methods, the source paper's baselines, in the app's order:
-# (method, kernels it must launch; every other kernel must not launch)
-LAS_METHODS = [(name, ("pcr_u64_min_flat", "pcr_hqs_sums_flat") if "hqs" in name
-                else ("pcr_u64_min_flat",))
+# (method, kernels it must launch once a frame; every other kernel must
+# not launch): B11 projects the 10-10-10 methods' points, the others
+# project in torch ops
+LAS_METHODS = [(name, ("pcr_las_project",) * name.startswith("loop_las") + (
+                   ("pcr_u64_min_flat", "pcr_hqs_sums_flat") if "hqs" in name
+                   else ("pcr_u64_min_flat",)))
                for name in ("loop_las", "loop_las2", "loop_las_hqs", "basic", "2021 early-z",
                             "2021 early-z & reduce", "2021 dedup", "GL_POINTS", "2021 hqs")]
+# B11's crafted frames: (batches, seed); 300 batches make two parts
+LAS_CRAFTED = ((40, 1), (300, 2))
 # the (path, view) whose launches are reported; None: reached by no method
 OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2", "orbit"),
          "pcr_project:hqs": ("hqs v2", "orbit"),
@@ -464,6 +486,7 @@ OWNER = {"pcr_decode_fixed": ("colour v2", "orbit"), "pcr_project": ("colour v2"
          "pcr_hqs_sorted": None, "pcr_tile_sort3": None,
          "pcr_decode_huffman": ("colour huffman", "orbit"),
          "pcr_u64_min_flat": ("las loop_las", "orbit"),
+         "pcr_las_project": ("las loop_las", "orbit"),
          "pcr_hqs_sums_flat": ("las loop_las_hqs", "orbit"),
          "pcr_u64_min_flat:potree": ("potree loop_nodes", "steady"),
          "pcr_hqs_sums_flat:potree": ("potree loop_nodes_hqs", "steady")}
@@ -742,7 +765,7 @@ OUTPUT_PATHS = [  # (label, method, scene, kernels, views, flags)
      tuple(OUTPUT_FLAGS)),
     ("colour huffman", "huffman_mem_iter", "huffman", ("pcr_decode_huffman", "pcr_project"),
      OUTPUT_VIEWS, tuple(OUTPUT_FLAGS)),
-    ("las loop_las", "loop_las", "las", (), ("orbit",), ("edl", "depth")),
+    ("las loop_las", "loop_las", "las", ("pcr_las_project",), ("orbit",), ("edl", "depth")),
 ]
 
 
@@ -922,7 +945,8 @@ def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) 
         if name == "orbit" and method_name in ("loop_las", "basic", "2021 early-z"):
             ms = statistics.median([device_ms(lambda: parts_fn(**args))
                                     for _ in range(KERNEL_REPS)])
-            proj = f"; its projection (torch ops) {ms:.4f} ms device"
+            how = "B11" if method_name == "loop_las" else "torch ops"
+            proj = f"; its projection ({how}) {ms:.4f} ms device"
         if (method_name, name) == ("loop_las_hqs", "orbit") and path == las_path:
             parts = parts_fn(**args)
             colour = loop_las.colour_parts(parts, args["dev"]["rgba"])
@@ -938,6 +962,113 @@ def las_phase(las_path: str, multi: list, results: dict, errs: dict, card: str) 
         Runtime.clear()
         torch.cuda.empty_cache()
     return shapes
+
+
+def las_project_bytes(args: dict) -> int:
+    """B11's least bytes on one frame's `loop_las_parts` arguments: each
+    point's 12-byte entry, and the plane words the visible batches'
+    levels read."""
+    from pcrhpg24_tpu_torch.render.methods.loop_las import PLANES
+
+    lvl, vis = (args[k][:args["batches"]].cpu().numpy() for k in ("level", "vis"))
+    return 65536 * (12 * args["batches"] + 4 * int(PLANES[lvl[vis != 0]].sum()))
+
+
+def las_project_alone(args: dict):
+    """One launch of B11 alone on a frame's arguments, into outputs
+    allocated here (outside any timer's events)."""
+    from pcrhpg24_tpu_torch.render.methods.loop_las import LAS_PROJECT, las_project
+
+    out = las_project(**args)
+    ptrs = [args["dev"][k].data_ptr() for k in ("xyz4", "xyz8", "xyz12")]
+    ptrs += [args[k].data_ptr() for k in ("level", "vis", "bmin", "bmax", "transform")]
+    ptrs += [t.data_ptr() for t in out]
+    return lambda: LAS_PROJECT.launch(*ptrs, args["batches"], args["width"], args["height"])
+
+
+def las_project_gate(args: dict, what: str, errs: dict) -> int:
+    """B11 (`loop_las_parts` on the card) against `project_101010` (its
+    `plain=True` path) on one frame's arguments, under the kernel's
+    contract: pid and index bit-exact on every entry, depth wherever the
+    pid lands (a dropped entry's depth is never read); -> entries landed."""
+    from pcrhpg24_tpu_torch.render.methods.loop_las import loop_las_parts
+
+    size = args["width"] * args["height"]
+    got = loop_las_parts(**args)
+    want = loop_las_parts(**args, plain=True)
+    check([tuple(p[0].shape) for p in got] == [tuple(p[0].shape) for p in want],
+          f"B11 on {what}: the parts' shapes differ from the plain version's")
+    live = [w[0] < size for w in want]
+    e = same_planes([g[k] for g in got for k in (0, 2)], [w[k] for w in want for k in (0, 2)],
+                    f"B11 on {what}: pid or index != project_101010")
+    e = max(e, same_planes([g[1][m] for g, m in zip(got, live)],
+                           [w[1][m] for w, m in zip(want, live)],
+                           f"B11 on {what}: depth of a landed entry != project_101010"))
+    errs["pcr_las_project"] = max(errs["pcr_las_project"], e)
+    return sum(int(m.sum()) for m in live)
+
+
+def las_project_phase(errs: dict, card: str) -> dict:
+    """B11 bit-exact against `project_101010` (`las_project_gate`) on
+    crafted frames (`crafted.las_frame`: every level side by side, culled
+    batches, 40 and 300 batches, and a prefix of the tables' batches),
+    timed on the 300-batch one; then on the benchmark's `las.orbit` scene
+    (the 1,024-batch Morton terrain made by `benchmark/`'s own generator
+    and writer from one seed, loaded by the port) at three of its orbit
+    frames, each frame in colour and HQS also bit-exact against its
+    all-plain frame.  -> the orbit frame's `loop_las_parts` arguments
+    (the kernels line's B11 row)."""
+    import torch
+
+    from benchmark.reference.common import orbit
+    from benchmark.run import load_scene
+    from benchmark.spec import Spec
+    from pcrhpg24_tpu_torch.engine.method import Runtime
+    from pcrhpg24_tpu_torch.render.methods.loop_las import loop_las_frame, loop_las_parts
+    from pcrhpg24_tpu_torch.tools import crafted
+
+    for nb, seed in LAS_CRAFTED:
+        a = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in crafted.las_frame(nb, W, H, seed).items()}
+        args = dict(dev={k: a[k] for k in ("xyz4", "xyz8", "xyz12")}, level=a["level"],
+                    vis=a["vis"], bmin=a["bmin"], bmax=a["bmax"], transform=a["transform"],
+                    batches=nb, width=W, height=H)
+        for n in (nb, nb - 3):
+            landed = las_project_gate({**args, "batches": n}, f"crafted {n} of {nb}", errs)
+            print(f"[gate] B11 bit-exact vs project_101010 on the crafted frame's first {n} "
+                  f"of {nb} batches (levels 0-4, {int((a['vis'][:n] == 0).sum())} culled; "
+                  f"{landed:,} of {n * 65536:,} entries land) [{card}]")
+    k_ms = time_ms(lambda: loop_las_parts(**args), KERNEL_REPS, spin=True)
+    k_alone = time_ms(las_project_alone(args), KERNEL_REPS, spin=True)
+    p_ms = time_ms(lambda: loop_las_parts(**args, plain=True), PLAIN_REPS)
+    moved = las_project_bytes(args)
+    print(f"[time] B11 on the crafted {nb}-batch frame: device {k_ms:.4f} ms, kernel alone "
+          f"{k_alone:.4f}, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: {moved:,} B), "
+          f"plain project_101010 {p_ms:.3f} ms [{card}]")
+    spec = Spec.load("las.orbit")
+    seed = 2**31 + 2204
+    steps = {}
+    _points, _info, r, method, _workers = load_scene(spec, seed, DEVICE, True, steps)
+    print(f"[scene] the benchmark's las.orbit scene, seed {seed}: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items()))
+    frame_args = None
+    for i in (0, 97, 361):
+        c = r.controls
+        c.yaw, c.pitch, c.radius, c.target = orbit(spec.traffic, spec.config, seed, i)
+        r.controls_update()
+        fa = {k: v for k, v in method.frame_args(r).items() if k != "hqs"}
+        landed = las_project_gate(fa, f"las.orbit frame {i}", errs)
+        for hqs in (False, True):
+            same_planes(loop_las_frame(**fa, hqs=hqs), loop_las_frame(**fa, hqs=hqs, plain=True),
+                        f"las.orbit frame {i} (hqs {hqs}) != its all-plain frame")
+        print(f"[gate] B11 bit-exact vs project_101010 on the las.orbit frame {i} "
+              f"({fa['batches']} batches, {landed:,} entries land); the colour and HQS frames "
+              f"bit-exact vs their all-plain frames [{card}]")
+        if i == 0:
+            frame_args = fa
+    method.las.unload(r)
+    Runtime.clear()
+    return frame_args
 
 
 def potree_scene(points: int) -> tuple[str, float]:
@@ -1410,7 +1541,7 @@ def main(argv=None) -> int:
     from pcrhpg24_tpu_torch.render.methods.huffman_hqs import hqs_huffman_frame
     from pcrhpg24_tpu_torch.render.methods.huffman_mem_iter import mem_iter_frame
     from pcrhpg24_tpu_torch.render.methods.huffman_tpu_hqs import hqs_frame_native
-    from pcrhpg24_tpu_torch.render.methods.loop_las import resolve_indexed
+    from pcrhpg24_tpu_torch.render.methods.loop_las import loop_las_parts, resolve_indexed
     from pcrhpg24_tpu_torch.render.methods.loop_nodes_compressed import (
         ComputeLoopNodesCompressed, WgData, render_wg, wg_points)
     from pcrhpg24_tpu_torch.render.methods.parametric import (
@@ -2215,6 +2346,8 @@ def main(argv=None) -> int:
     watch.lap("main paths of the parametric and .wg scenes")
     las_shapes = las_phase(base + ".las", multi_paths(base), results, errs, card)
     watch.lap("the .las methods")
+    las_args = las_project_phase(errs, card)
+    watch.lap("B11 on crafted frames and the benchmark's .las scene")
 
     # the Potree scene's two methods, one load for every view
     potree_path, potree_s = potree_scene(int(args.potree_points))
@@ -2412,6 +2545,8 @@ def main(argv=None) -> int:
                                      lambda: plane4p.index_add_(0, idx4p, vals4p)),
         "pcr_decode_native": (lambda: decode_native_batches(*native_in, points=64),
                               lambda: decode_native_plain(*native_in, points=64), None),
+        "pcr_las_project": (lambda: loop_las_parts(**las_args),
+                            lambda: loop_las_parts(**las_args, plain=True), None),
         "pcr_merge_nk1": (lambda: dense_from_sorted_nk1(*sp, psize),
                           lambda: u64_min_planes_plain([sp], psize),
                           lambda: plane6.scatter_reduce_(0, idx6, keys6, reduce="amin")),
@@ -2453,6 +2588,7 @@ def main(argv=None) -> int:
                                      + 16 * psize),
         "pcr_decode_native": (nbytes(*native_tables) + stream_bytes[1]
                               + CHUNK * 64 * 3 * 1024 * 4),
+        "pcr_las_project": las_project_bytes(las_args),
         "pcr_merge_nk1": nbytes(*sp) + 8 * psize,
         "pcr_merge_heads": nbytes(*s3) + 8 * size,
         "pcr_hqs_sorted": nbytes(*hs, hfb) + 16 * size,
@@ -2483,6 +2619,8 @@ def main(argv=None) -> int:
                                     f"part(s), {sum(p[0].numel() for p in pcolour):,} entries",
         "pcr_decode_huffman": f"the .huffman scene's first {CHUNK} batches at points "
                               f"{dpts}",
+        "pcr_las_project": f"the benchmark's las.orbit frame 0, {las_args['batches']} batches "
+                           f"in {len(loop_las_parts(**las_args))} parts",
         "pcr_project:hqs": f"one orbit chunk in HQS mode, {n:,} entries",
         "pcr_project:payload": f"one orbit chunk in batch-payload mode (the batch index), "
                                f"{n:,} entries",
@@ -2511,6 +2649,7 @@ def main(argv=None) -> int:
         "pcr_merge_nk1": lambda: MERGE_NK1.launch(
             sp[0].data_ptr(), sp[1].data_ptr(), sp[2].data_ptr(), plane_alone.data_ptr(),
             sp[0].numel(), psize),
+        "pcr_las_project": las_project_alone(las_args),
     }
     # the kernel alone reads its parts and writes only the plane words its
     # live entries land in: the plane is filled outside its events
@@ -2524,6 +2663,8 @@ def main(argv=None) -> int:
                        ("pcr_u64_min_flat", (lparts, psize)),
                        ("pcr_u64_min_flat:potree", (pparts, psize)),
                        ("pcr_merge_nk1", ([sp], psize)))}
+    # B11 alone writes its three outputs whole, as the wrapper does
+    alone_bound["pcr_las_project"] = bound_bytes["pcr_las_project"] / HBM_BYTES_PER_S * 1e3
     assert set(alone_bound) == set(alone)
     # f32 work of B2's projection: 3 scale, 3 x (3 mul + 3 add), 1 div,
     # 2 ndc mul, 2 x (mul, add, mul) pixel maps per entry

@@ -22,11 +22,14 @@ test `w <= old * 1.01f` and byte sums are the reference's
 
 The reference uploads per-point level, visibility and box planes each
 frame (`np.repeat` over the padded scene); here the per-batch arrays
-go up in one packed copy and broadcast over each batch's 65,536 points,
+go up in one packed copy and each batch's 65,536 points read them,
 which gives the same numbers.  A frame projects the loaded batches only:
-the reference masks every entry past them (visibility False).  The
-10-10-10 unpack and projection are int32 and f32 torch ops in the
-reference's operation order, unfused.
+the reference masks every entry past them (visibility False).  On the
+card the 10-10-10 unpack and projection of a frame are one kernel
+(`LAS_PROJECT`, `csrc/las_project.cu`) that reads only the planes each
+batch's level needs; on the CPU, and for the plain frame, they are
+`project_101010`: int32 and f32 torch ops in the reference's operation
+order, unfused, one call a 256-batch chunk.
 
 The reference's 30-bit unpack has a copy-paste defect (render.cs:
 456-458 ORs X_12 into Y and Z); both implement the evident intent.
@@ -44,6 +47,7 @@ from ...constants import POINTS_PER_WORKGROUP, RENDER_CHUNK_BATCHES
 from ...engine import timing
 from ...engine.debug import Debug
 from ...engine.method import Method, Runtime
+from ...kernels.build import I, P, Kernel, check_cuda
 from ...u32 import widen
 from ..camera import batches_in_frustum, frustum_planes
 from ..hqs import hqs_sums, hqs_sums_plain, resolve_hqs
@@ -62,6 +66,10 @@ STEPS_10BIT = 1024.0
 MASK = 1023
 # 10-10-10 planes a batch's points read, by precision level: 30, 20, 10 bits
 PLANES = np.array([3, 2, 1, 1, 1])
+PLANE_KEYS = ("xyz4", "xyz8", "xyz12")
+# (xyz4, xyz8, xyz12, level, vis, bmin, bmax, transform, pid, dep, idx,
+# batches, width, height)
+LAS_PROJECT = Kernel("pcr_las_project", [P] * 11 + [I, I, I])
 
 
 def precision_levels(view, proj, bbox_min, bbox_max, width, height):
@@ -111,7 +119,8 @@ def mask_pid(pid, keep, size: int):
 
 def project_101010(xyz4, xyz8, xyz12, level, bmin, bmax, transform, base_index: int,
                    width: int, height: int, mask, index=None):
-    """(pid, depth, index) of packed points (`loop_las.py:225-279`).
+    """(pid, depth, index) of packed points (`loop_las.py:225-279`): the
+    plain version, torch ops on any device.
 
     xyz4/8/12: int32 planes of one shape, here (nb, 65536) for nb
     batches; level (int32), mask (bool) and each axis of the 3-tuples
@@ -121,7 +130,10 @@ def project_101010(xyz4, xyz8, xyz12, level, bmin, bmax, transform, base_index: 
     then `Xs * (box / denom) + bmin`, and `raster.project_points`' f32
     projection.  All int32: a plane field is 10 bits, X/Y/Z 30.  The
     payload is each point's global index: `base_index` onwards, or the
-    int32 `index` tensor of the points' own indices (a gathered frame)."""
+    int32 `index` tensor of the points' own indices (a gathered frame).
+    It is what `loop_las_parts` runs on the CPU and for the plain frame,
+    what `LAS_PROJECT` is held to on the card, and the Potree frames'
+    projection (`project_101010_nodes`) everywhere."""
 
     def unpack(plane, shift):
         return tuple(((plane >> s) & MASK) << shift for s in (0, 10, 20))
@@ -210,25 +222,70 @@ def resolve_parts(parts, rgba, width: int, height: int, hqs: bool = False,
 
 
 def loop_las_parts(dev, level, vis, bmin, bmax, transform, batches: int, width: int,
-                   height: int):
+                   height: int, plain: bool = False):
     """The (pid, depth, index) part of each 256-batch chunk of the first
-    `batches` batches (`raster_chunk_101010`, `loop_las.py:63-74`).
+    `batches` batches (`raster_chunk_101010`, `loop_las.py:63-74`), each
+    (nb, 65536) int32.
 
-    dev: `ComputeLasData.dev`; level (B,) int32, vis (B,) bool, bmin and
-    bmax (B, 3) f32: per loaded batch; transform (4, 4) f32 wvp.  Each
-    chunk's projection is a span `las.project` while tracing."""
+    dev: `ComputeLasData.dev`; level (B,) int32, vis (B,) int32 (0: the
+    batch is culled), bmin and bmax (B, 3) f32: per loaded batch;
+    transform (4, 4) f32 wvp.  CUDA tensors launch `LAS_PROJECT` once for
+    the frame, and the parts are views of its three outputs; CPU tensors,
+    or `plain=True`, take `project_101010` a chunk.  On the card a culled
+    batch's depth words are 0, which B3 and B4 never read (its pids are
+    width*height).  The projection is a span `las.project` while
+    tracing."""
     P = POINTS_PER_WORKGROUP
-    parts = []
-    for s in range(0, batches * P, CHUNK_PTS):
-        b0, b1 = s // P, min(s + CHUNK_PTS, batches * P) // P
-        sl = slice(s, b1 * P)
-        planes = [dev[k][sl].view(b1 - b0, P) for k in ("xyz4", "xyz8", "xyz12")]
-        per_axis = lambda box: tuple(box[b0:b1, k:k + 1] for k in range(3))
-        with timing.span("las.project"):
-            parts.append(project_101010(*planes, level[b0:b1, None], per_axis(bmin),
-                                        per_axis(bmax), transform, s, width, height,
-                                        vis[b0:b1, None]))
-    return parts
+    nb = CHUNK_PTS // P
+    with timing.span("las.project"):
+        if plain or not dev["xyz4"].is_cuda:
+            parts = []
+            for b0 in range(0, batches, nb):
+                b1 = min(b0 + nb, batches)
+                planes = [dev[k][b0 * P:b1 * P].view(b1 - b0, P) for k in PLANE_KEYS]
+                per_axis = lambda box: tuple(box[b0:b1, k:k + 1] for k in range(3))
+                parts.append(project_101010(*planes, level[b0:b1, None], per_axis(bmin),
+                                            per_axis(bmax), transform, b0 * P, width,
+                                            height, vis[b0:b1, None] != 0))
+            return parts
+        out = las_project(dev, level, vis, bmin, bmax, transform, batches, width, height)
+    return chunk_parts(out, batches)
+
+
+def chunk_parts(entries, batches: int):
+    """A frame's (pid, depth, index), each (batches, 65536), as the views
+    of its 256-batch chunks: the parts `loop_las_parts` returns."""
+    nb = CHUNK_PTS // POINTS_PER_WORKGROUP
+    return [tuple(t[b0:b0 + nb] for t in entries) for b0 in range(0, batches, nb)]
+
+
+def las_project(dev, level, vis, bmin, bmax, transform, batches: int, width: int,
+                height: int):
+    """`LAS_PROJECT` over the first `batches` batches -> (pid, depth,
+    index), each (batches, 65536) int32: `loop_las_parts`' arguments, on
+    the card."""
+    P = POINTS_PER_WORKGROUP
+    planes = [dev[k] for k in PLANE_KEYS]
+    for k, t in zip(PLANE_KEYS, planes):
+        check_cuda(k, t, torch.int32)
+        if t.numel() < batches * P or t.data_ptr() % 16:
+            raise ValueError(f"{k}: expected 16-byte aligned planes of at least "
+                             f"{batches * P} points")
+    B = level.shape[0]
+    if not 0 <= batches <= B or batches * P >= 2**31:
+        raise ValueError(f"batches {batches}: expected 0..{B} and under 2**31 points")
+    check_cuda("level", level, torch.int32, (B,))
+    check_cuda("vis", vis, torch.int32, (B,))
+    check_cuda("bmin", bmin, torch.float32, (B, 3))
+    check_cuda("bmax", bmax, torch.float32, (B, 3))
+    check_cuda("transform", transform, torch.float32, (4, 4))
+    out = [torch.empty((batches, P), dtype=torch.int32, device=level.device)
+           for _ in range(3)]
+    if batches:
+        LAS_PROJECT.launch(*(t.data_ptr() for t in (*planes, level, vis, bmin, bmax,
+                                                    transform, *out)),
+                           batches, width, height)
+    return tuple(out)
 
 
 def loop_las_frame(dev, level, vis, bmin, bmax, transform, batches: int, width: int,
@@ -236,8 +293,10 @@ def loop_las_frame(dev, level, vis, bmin, bmax, transform, batches: int, width: 
     """One frame -> (fb_depth, fb_payload or acc_n, image), the planes
     (H*W,) int32 u32 bits, linear: `loop_las_parts` resolved by
     `resolve_parts`; `hqs` blends (`hqs_chunk_101010`,
-    `ComputeLoopLasHqs.render`)."""
-    parts = loop_las_parts(dev, level, vis, bmin, bmax, transform, batches, width, height)
+    `ComputeLoopLasHqs.render`); `plain=True` builds it from the plain
+    versions alone."""
+    parts = loop_las_parts(dev, level, vis, bmin, bmax, transform, batches, width, height,
+                           plain)
     return resolve_parts(parts, dev["rgba"], width, height, hqs, plain)
 
 
@@ -316,7 +375,7 @@ class ComputeLoopLas(LasMethod):
                 bmin=packed[16:16 + 3 * B].reshape(B, 3),
                 bmax=packed[16 + 3 * B:16 + 6 * B].reshape(B, 3),
                 level=packed[16 + 6 * B:16 + 7 * B].view(torch.int32),
-                vis=packed[16 + 7 * B:].view(torch.int32) != 0,
+                vis=packed[16 + 7 * B:].view(torch.int32),
                 batches=B, width=W, height=H, hqs=self.HQS)
 
 

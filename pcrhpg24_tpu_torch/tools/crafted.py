@@ -88,6 +88,13 @@ payload decides B3; and random pixels over the whole plane.
 `flat_cuts` splits such a stream into uneven parts, none a multiple of
 the kernels' 512-entry tile.
 
+`las_frame` builds the per-batch tables and 10-10-10 planes of a `.las`
+frame (`loop_las_parts`' arguments): every precision level 0-4 next to
+each other, culled batches among them, full-range plane words (bits 30
+and 31 set too), a batch of zero planes and one of all-ones fields, a
+box of zero extent, one through the camera's plane (w <= 0), one off
+screen and one 9 km away, on screen.
+
 `potree_part` builds what a Potree chunk hands B3 and B4: many nodes one
 after the other, each a run of nearby pixels in random order inside the
 node (its points fall around one spot of the screen, in the order they
@@ -602,3 +609,41 @@ def flat_cuts(n: int, parts: int, seed: int = 0) -> list:
         cuts = [0, *inner.tolist(), n]
         if all((b - a) % 512 for a, b in zip(cuts, cuts[1:])):
             return cuts
+
+
+def las_frame(batches: int, width: int, height: int, seed: int = 0) -> dict:
+    """-> numpy arguments of `loop_las_parts` for `batches` (>= 10)
+    batches (module doc): xyz4, xyz8, xyz12 (batches * 65536,) i32, level
+    and vis (batches,) i32, bmin and bmax (batches, 3) f32, transform
+    (4, 4) f32, a perspective 100 m from the origin looking down -z."""
+    rng = np.random.default_rng(seed)
+    n = batches * CHAINS * 64
+    planes = {k: rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+              for k in ("xyz4", "xyz8", "xyz12")}
+    b = CHAINS * 64
+    for k in planes:
+        planes[k][5 * b:6 * b] = 0
+        planes[k][6 * b:7 * b] = 1023 * (1 + 1024 + 1024**2)
+    level = rng.integers(0, 5, batches).astype(np.int32)
+    level[:10] = np.arange(10) % 5
+    vis = (rng.random(batches) > 0.15).astype(np.int32)
+    vis[:10] = 1
+    vis[3] = vis[batches - 1] = 0
+    centre = rng.uniform([-40, -25, -20], [40, 25, 20], (batches, 3))
+    extent = rng.uniform(0.5, 30.0, (batches, 3))
+    extent[7] = 0.0  # every point on bmin
+    centre[8], extent[8] = (0.0, 0.0, 100.0), (20.0, 20.0, 40.0)  # through the camera
+    centre[9], extent[9] = (900.0, 0.0, 0.0), (10.0, 10.0, 10.0)  # off screen
+    centre[6], extent[6] = (3000.0, 2000.0, -9000.0), (500.0, 500.0, 50.0)  # 9 km away
+    bmin = (centre - extent / 2).astype(np.float32)
+    bmax = (bmin + extent).astype(np.float32)
+    f = 1.0 / np.tan(np.deg2rad(60.0) / 2.0)
+    near, far = 0.1, 1000.0
+    proj = np.zeros((4, 4))
+    proj[0, 0], proj[1, 1] = f * height / width, f
+    proj[2, 2], proj[2, 3] = (far + near) / (near - far), 2.0 * far * near / (near - far)
+    proj[3, 2] = -1.0
+    view = np.eye(4)
+    view[2, 3] = -100.0
+    return dict(**planes, level=level, vis=vis, bmin=bmin, bmax=bmax,
+                transform=(proj @ view).astype(np.float32))

@@ -267,9 +267,15 @@ LEVELS = {"0": [0] * 4, "1": [1] * 4, "2": [2] * 4, "3": [3] * 4, "4": [4] * 4,
 
 
 @pytest.mark.parametrize("levels", sorted(LEVELS))
-def test_project_101010_streams_equal_reference(scene, levels):
+@pytest.mark.parametrize("entry", ["project_101010", "loop_las_parts"])
+def test_project_101010_streams_equal_reference(scene, monkeypatch, entry, levels):
     """`_project_101010` at O0 on four batches (two loaded, two zero) at
-    each level and a per-batch mix, with the last batch masked off."""
+    each level and a per-batch mix, with the last batch masked off:
+    `project_101010` on per-batch planes from point 5 * 65536, and
+    `loop_las_parts`' CPU path on the per-batch tables of `frame_args`
+    (int32 visibility) from point 0, in parts of three batches and one.
+    Where `loop_las_parts` drops a point, only its pid and index are held:
+    the kernel's contract leaves a dropped entry's depth unread."""
     d, ref = scene.port["d1010"], scene.ref["d1010"]
     cam = _camera("close").camera
     wvp = (cam.proj() @ cam.view()).astype(np.float32)
@@ -280,20 +286,73 @@ def test_project_101010_streams_equal_reference(scene, levels):
     bmin = np.concatenate([d.bbox_min[:2], rng.uniform(0, 100, (2, 3))]).astype(np.float32)
     bmax = (bmin + np.concatenate([d.bbox_max[:2] - d.bbox_min[:2],
                                    rng.uniform(0, 50, (2, 3))])).astype(np.float32)
-    planes = [d.dev[k][:nb * P].view(nb, P) for k in ("xyz4", "xyz8", "xyz12")]
     t = torch.from_numpy
-    got = loop_las.project_101010(
-        *planes, t(lvl)[:, None], tuple(t(bmin[:, k:k + 1]) for k in range(3)),
-        tuple(t(bmax[:, k:k + 1]) for k in range(3)), t(wvp), 5 * P, W, H, t(vis)[:, None])
+    if entry == "project_101010":
+        base = 5 * P
+        planes = [d.dev[k][:nb * P].view(nb, P) for k in ("xyz4", "xyz8", "xyz12")]
+        got = loop_las.project_101010(
+            *planes, t(lvl)[:, None], tuple(t(bmin[:, k:k + 1]) for k in range(3)),
+            tuple(t(bmax[:, k:k + 1]) for k in range(3)), t(wvp), base, W, H,
+            t(vis)[:, None])
+    else:
+        base = 0
+        monkeypatch.setattr(loop_las, "CHUNK_PTS", 3 * P)
+        parts = loop_las.loop_las_parts(
+            {k: d.dev[k][:nb * P] for k in ("xyz4", "xyz8", "xyz12")}, t(lvl),
+            t(vis.astype(np.int32)), t(bmin), t(bmax), t(wvp), nb, W, H)
+        assert [tuple(p[0].shape) for p in parts] == [(3, P), (1, P)]
+        got = [torch.cat([p[k] for p in parts]) for k in range(3)]
     fn = jax.jit(ref_loop._project_101010, static_argnames=("width", "height"))
     want = _o0(fn, xyz4=ref.dev["xyz4"][:nb * P], xyz8=ref.dev["xyz8"][:nb * P],
                xyz12=ref.dev["xyz12"][:nb * P], level_pt=jnp.asarray(np.repeat(lvl, P)),
                bmin_pt=jnp.asarray(np.repeat(bmin, P, axis=0)),
                bmax_pt=jnp.asarray(np.repeat(bmax, P, axis=0)), transform=jnp.asarray(wvp),
-               base_index=jnp.uint32(5 * P), mask_pt=jnp.asarray(np.repeat(vis, P)))
+               base_index=jnp.uint32(base), mask_pt=jnp.asarray(np.repeat(vis, P)))
+    pid, dep, idx = (to_u32(g).reshape(-1) for g in got)
+    wpid, wdep, widx = (np.asarray(w).astype(np.uint32) for w in want)
+    np.testing.assert_array_equal(pid, wpid)
+    np.testing.assert_array_equal(idx, widx)
+    live = wpid < W * H
+    np.testing.assert_array_equal(dep[live] if entry == "loop_las_parts" else dep,
+                                  wdep[live] if entry == "loop_las_parts" else wdep)
+    assert live.sum() > 1000 and (wpid[3 * P:] == W * H).all()
+
+
+def test_loop_las_parts_layout_across_parts(scene, monkeypatch):
+    """At three batches in parts of two, the card path's parts (views of
+    one whole-frame projection, `chunk_parts`) equal the plain path's
+    per-chunk parts entry for entry: the same shapes, each part k holding
+    the points from k * CHUNK_PTS, so `colour_parts` slices `rgba` at the
+    same points and `resolve_parts` gives the same planes and image."""
+    monkeypatch.setattr(loop_las, "CHUNK_PTS", 2 * P)
+    d = scene.port["d1010"]
+    nb = 3
+    cam = _camera("orbit").camera
+    wvp = torch.from_numpy((cam.proj() @ cam.view()).astype(np.float32))
+    level = torch.tensor([0, 4, 2], dtype=torch.int32)
+    vis = torch.tensor([1, 0, 1], dtype=torch.int32)
+    bmin = torch.from_numpy(np.concatenate([d.bbox_min[:2], d.bbox_min[:1]]))
+    bmax = torch.from_numpy(np.concatenate([d.bbox_max[:2], d.bbox_max[:1]]))
+    dev = {k: d.dev[k][:nb * P] for k in ("xyz4", "xyz8", "xyz12", "rgba")}
+    want = loop_las.loop_las_parts(dev, level, vis, bmin, bmax, wvp, nb, W, H)
+    planes = [dev[k].view(nb, P) for k in ("xyz4", "xyz8", "xyz12")]
+    whole = loop_las.project_101010(*planes, level[:, None],
+                                    tuple(bmin[:, k:k + 1] for k in range(3)),
+                                    tuple(bmax[:, k:k + 1] for k in range(3)), wvp, 0, W, H,
+                                    vis[:, None] != 0)
+    got = loop_las.chunk_parts(whole, nb)
+    assert [tuple(p[0].shape) for p in got] == [(2, P), (1, P)]
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(to_u32(g).reshape(-1), np.asarray(w).astype(np.uint32))
-    assert (to_u32(got[0]) < W * H).sum() > 1000
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and a.is_contiguous() and torch.equal(a, b)
+    for g, w in zip(loop_las.colour_parts(got, dev["rgba"]),
+                    loop_las.colour_parts(want, dev["rgba"])):
+        assert torch.equal(g[2], w[2])
+    assert (to_u32(got[1][0]) < W * H).sum() > 1000  # the second part's batch lands
+    for hqs in (False, True):
+        for g, w in zip(loop_las.resolve_parts(got, dev["rgba"], W, H, hqs),
+                        loop_las.resolve_parts(want, dev["rgba"], W, H, hqs)):
+            assert torch.equal(g, w)
 
 
 def _streams_of(monkeypatch, module, fn_name, **kw):
