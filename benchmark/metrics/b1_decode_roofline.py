@@ -4,7 +4,7 @@ from benchmark import readers
 
 UNIT = "%"
 LAYER = "kernels: B1 decode"
-MOVES = "points_per_s.tpc"
+MOVES = "points_per_s"
 
 
 def read(rec):

@@ -5,7 +5,7 @@ from benchmark import readers
 
 UNIT = "%"
 LAYER = "kernels: B4 HQS sums"
-MOVES = "points_per_s.las"
+MOVES = "points_per_s"
 
 
 def read(rec):

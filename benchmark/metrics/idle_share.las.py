@@ -4,7 +4,7 @@ from benchmark import readers
 
 UNIT = "share"
 LAYER = "device"
-MOVES = "points_per_s.las"
+MOVES = "points_per_s"
 
 
 def read(rec):

@@ -11,7 +11,7 @@ from benchmark.roofline import share
 
 UNIT = "%"
 LAYER = "kernels: .las projection"
-MOVES = "points_per_s.las"
+MOVES = "points_per_s"
 SYMBOL = "pcr_las_project"
 POINTS_PER_BATCH = 65536
 

@@ -5,7 +5,7 @@ from benchmark import program
 
 UNIT = "ms"
 LAYER = "renderer loop, host enqueue"
-MOVES = "points_per_s.las"
+MOVES = "points_per_s"
 
 
 def read(rec):

@@ -1,11 +1,12 @@
-"""Device ms a frame outside the port's own kernels: the 10-10-10 unpack and
-the projection (`loop_las_parts`, `raster.project_points`), the lookup."""
+"""Device ms a frame outside the port's own kernels: the plane fills, the
+colour lookup (`resolve_indexed`), in HQS the divide (`resolve_hqs`), and
+the packed upload of the boxes, levels and transform."""
 
 from benchmark import readers
 
 UNIT = "ms"
 LAYER = "torch ops"
-MOVES = "points_per_s.las"
+MOVES = "points_per_s"
 
 
 def read(rec):

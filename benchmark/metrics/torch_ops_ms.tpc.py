@@ -5,7 +5,7 @@ from benchmark import readers
 
 UNIT = "ms"
 LAYER = "torch ops"
-MOVES = "points_per_s.tpc"
+MOVES = "points_per_s"
 
 
 def read(rec):

@@ -51,12 +51,3 @@ def per_frame(rec, name: str):
         return None
     return tot["counters"][name] / rec["trace"]["frames"]
 
-
-def unpack_use(rec):
-    """The 10-10-10 planes the visible batches' levels read, over the three
-    planes every projected batch unpacks."""
-    tot = totals(rec)
-    if tot is None or not tot["counters"].get("las.batches"):
-        return None
-    c = tot["counters"]
-    return c.get("las.planes_needed", 0) / (3 * c["las.batches"])

@@ -163,6 +163,8 @@ class Window:
             if time.perf_counter() - t0 >= seconds:
                 break
         self.seconds = time.perf_counter() - t0
+        if self.capture:  # and the last frame, so a window slower than planned keeps one
+            self.images.setdefault(i - 1, self.r.last_image.clone())
         return self
 
     @property

@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 from benchmark import program
+from benchmark.roofline import share
 from benchmark.spec import load_module
 from benchmark.tests.conftest import run_cpu
 
@@ -19,7 +20,6 @@ NEW = {
     "frame_args_ms.las": ("spans", "las.frame_args"),
     "project_enqueue_ms.las": ("spans", "las.project"),
     "resolve_enqueue_ms.las": ("spans", "las.resolve"),
-    "unpack_use.las": ("counters", "las.planes_needed"),
     "frame_args_ms.tpc": ("spans", "tpc.frame_args"),
     "live_wait_ms.tpc": ("spans", "tpc.live_wait"),
     "chunk_enqueue_ms.tpc": ("spans", "tpc.chunk"),
@@ -56,7 +56,7 @@ def read(name: str, rec):
 def test_readers_on_a_record():
     rec = record(program=totals())
     want = {"frame_args_ms.las": 1.0, "project_enqueue_ms.las": 5.0,
-            "resolve_enqueue_ms.las": 0.5, "unpack_use.las": 48 / 120,
+            "resolve_enqueue_ms.las": 0.5,
             "frame_args_ms.tpc": 2.0, "live_wait_ms.tpc": 0.25,
             "chunk_enqueue_ms.tpc": 1.5, "live_chunks.tpc": 3.0}
     assert {n: read(n, rec) for n in NEW} == pytest.approx(want)
@@ -67,8 +67,6 @@ def test_readers_give_none_where_nothing_is_there(name, monkeypatch):
     kind, key = NEW[name]
     missing = totals()
     del missing[kind][key]
-    if name == "unpack_use.las":
-        del missing["counters"]["las.batches"]
     assert read(name, record(program=missing)) is None
     assert read(name, record(frames=5, program=totals())) is None  # another window's
     assert read(name, record(program=None)) is None  # a port that keeps none
@@ -78,6 +76,23 @@ def test_readers_give_none_where_nothing_is_there(name, monkeypatch):
     # a port without the switch: nothing to take
     monkeypatch.setattr(program, "_take", lambda: None)
     assert read(name, record()) is None
+
+
+def test_las_project_roofline_reads_the_counters():
+    """`las_project_roofline`'s bytes a frame are read from the counters
+    `las.batches` and `las.planes_needed`: 12 B a point of each projected
+    batch and 4 B a point of each plane word the levels read."""
+    def at(batches: int, planes: int):
+        tot = totals()
+        tot["counters"].update({"las.batches": batches, "las.planes_needed": planes})
+        rec = record(program=tot)
+        rec["trace"]["own_s"]["pcr_las_project"] = 0.004
+        return read("las_project_roofline", rec)
+
+    frame_s = 0.004 / 4
+    assert at(40, 48) == pytest.approx(share(65536 * (12 * 10 + 4 * 12), frame_s))
+    assert at(80, 48) == pytest.approx(share(65536 * (12 * 20 + 4 * 12), frame_s))
+    assert at(40, 96) == pytest.approx(share(65536 * (12 * 10 + 4 * 24), frame_s))
 
 
 def test_first_reader_takes_the_totals_once(monkeypatch):
@@ -105,6 +120,6 @@ def test_traced_cpu_run_reports_them(tiny, capsys):
     timing.take_counters()
     res = run_cpu(tiny, "las.orbit", trace=1, capsys=capsys)
     got = {n: res["metrics"][n]["value"] for n in LAS}
-    assert all(v > 0 for v in got.values()) and got["unpack_use.las"] <= 1.0
-    assert {res["metrics"][n]["unit"] for n in LAS} == {"ms", "share"}
+    assert all(v > 0 for v in got.values())
+    assert {res["metrics"][n]["unit"] for n in LAS} == {"ms"}
     assert timing.take_counters() == dict(counters={}, spans={})  # taken by the readers

@@ -42,7 +42,8 @@ def test_port_equals_reference(tiny, cell, capsys):
     res = run_cpu(tiny, cell, capsys=capsys)
     assert res["correct"] and res["failed"] == 0
     assert res["checks"]["wrong_pixels"] == {"value": 0, "limit": 0}
-    assert list(res)[-1] == "checks" and "setup_s" in res["metrics"]
+    assert list(res)[-1] == "checks"
+    assert set(res["metrics"]) == {"points_per_s", "frame_ms_p95", "setup_s"}
 
 
 @pytest.mark.parametrize("cell", CELLS)
